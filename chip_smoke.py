@@ -1,0 +1,545 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--out DIR] [--profile]
+
+Drives the port's main path — a static-scene frame: procedural mesh →
+``build_scene`` → ``build_bvh`` → BVH4 record table → CUDA traversal kernel →
+shade → compose → PNG — through the public entry points, at the sizes the
+repo calls real (260,642 triangles at 1920x1056 with shadow rays; 1,048,352
+triangles as one tree).  It builds the hand-written kernel from the sources in
+this checkout, holds it against its plain PyTorch version on the card, shows
+by launch counts that the main path went through the kernel, checks frames
+against the golden images, and times every stage with CUDA events.
+
+``--out DIR`` is where the rendered PNG goes (default ``build/chip_smoke``
+under this checkout).  ``--profile`` adds a ``torch.profiler`` pass over three frames of the
+260,642-triangle path (device busy share, kernels by device time); without
+that flag the pass is skipped.
+
+It needs a CUDA device and fails without one; nothing here falls back to the
+CPU and any failed phase ends the run with a non-zero exit code.  Each phase
+prints one JSON line; the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+GOLDEN_DIR = os.path.join(HERE, "tests", "golden")
+
+# Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
+# float32 rate outside the tensor cores.  The roofline bound is stated
+# against these whatever the card's power limit, which is printed beside it.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+# Float32 operations of csrc/trace_bvh4.cu, counted from its source.
+# Per popped record: 4 slab tests x (6 sub + 6 mul + 10 fmin/fmax + 3 compare).
+OPS_PER_POP = 4 * 25
+# Per triangle test: two crosses (18), four dots (20), 1 divide, 3 subtracts,
+# 3 scalings by 1/det, u+v, 7 compares.
+OPS_PER_LEAF_TEST = 53
+
+MAX_FLOAT = np.float32(3.4028234663852886e38)
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def np_hits(h) -> SimpleNamespace:
+    """A HitRecord's fields as numpy arrays, for the parity helpers."""
+    return SimpleNamespace(
+        **{k: getattr(h, k).detach().cpu().numpy() for k in ("t", "tri", "u", "v")}
+    )
+
+
+class Timer:
+    """CUDA-event timing; every sample is one call, optionally after a write
+    of a buffer larger than the 50 MB L2 so the call finds the cache cold."""
+
+    def __init__(self):
+        self.flush_buf = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+
+    def samples(self, fn, iters: int, warmup: int = 1, cold: bool = False):
+        for _ in range(warmup):
+            fn()
+        out = []
+        for _ in range(iters):
+            if cold:
+                self.flush_buf.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        return out
+
+    def median_ms(self, fn, iters: int = 5, warmup: int = 1, cold: bool = False) -> float:
+        return float(np.median(self.samples(fn, iters, warmup, cold)))
+
+
+def profile_frames(fn, frame_ms: float, frames: int = 3) -> dict:
+    """Device busy time and the heaviest kernels over ``frames`` calls.  The
+    idle share is stated against ``frame_ms``, the frame's time without the
+    profiler, whose own cost slows the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms == 0:
+        return {"device_time": "not measured (the profiler saw no device activity)"}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    return {
+        "frames": frames, "wall_ms_per_frame": wall_ms / frames,
+        "device_busy_ms_per_frame": busy_ms / frames,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / frames / frame_ms),
+        "device_idle_share_under_profiler": max(0.0, 1.0 - busy_ms / wall_ms),
+        "kernel_launches_per_frame": sum(e.count for e in kernels) / frames,
+        "top_kernels_ms_per_frame": [
+            [e.key[:80], e.self_device_time_total / 1e3 / frames, e.count // frames]
+            for e in top
+        ],
+    }
+
+
+def random_rays(n: int, seed: int, bound: float):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-bound, bound, size=(n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
+
+
+def compare_kernel_with_plain(name, trace_bvh4, parity, table, o, d,
+                              t_init=None, thresh=None, work=None):
+    """Kernel against plain version on the same CUDA tensors.  Tolerance:
+    identical hit masks; t, u, v bit-identical where tri agrees; every tri
+    disagreement an exact-t tie (|dt| <= 4e-6 |t|).  Returns the stats and
+    both results."""
+    got = trace_bvh4.traverse_bvh4(table, o, d, t_init=t_init, anyhit_thresh=thresh)
+    torch.cuda.synchronize()
+    want = trace_bvh4.traverse_bvh4_plain(
+        table, o, d, t_init=t_init, anyhit_thresh=thresh, work=work
+    )
+    torch.cuda.synchronize()
+    stats = parity.assert_hit_parity(np_hits(got), np_hits(want), exact=True)
+    stats["max_abs_err"] = max(stats["max_abs_dt"], stats["max_abs_duv"])
+    stats["case"] = name
+    return stats, got, want
+
+
+def roofline_ms(n_rays, has_t_init, has_thresh, records_visited, pops, leaf_tests):
+    """Least time the card could take for this run's traversal: every input
+    read once (rays, the distinct records any ray popped), every output
+    written once, against this run's float32 operations."""
+    in_bytes = n_rays * (24 + 4 * has_t_init + 4 * has_thresh) + records_visited * 256
+    out_bytes = n_rays * 16
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
+    ops = pops * OPS_PER_POP + leaf_tests * OPS_PER_LEAF_TEST
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return {
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes_ms": t_bytes,
+        "operations_ms": t_ops,
+        "min_bytes": in_bytes + out_bytes,
+        "operations": ops,
+    }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=os.path.join(HERE, "build", "chip_smoke"),
+                    help="directory for the rendered PNG")
+    ap.add_argument("--profile", action="store_true",
+                    help="add a torch.profiler pass and the gather-form A/B")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available; this script runs on the card only",
+              file=sys.stderr)
+        return 1
+    t_script = time.perf_counter()
+
+    import unitysimpleraytracing_tpu_torch as rt
+    from unitysimpleraytracing_tpu_torch.core.camera import generate_rays
+    from unitysimpleraytracing_tpu_torch.io.png import read_png, write_png
+    from unitysimpleraytracing_tpu_torch.ops import (
+        dispatch, lbvh, sort, trace, trace_bvh4, unique,
+    )
+    from unitysimpleraytracing_tpu_torch.pipeline import render
+    from unitysimpleraytracing_tpu_torch.utils import kernel_build, parity
+
+    out_dir = os.path.abspath(args.out)
+    os.makedirs(out_dir, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # ---- 1. device ------------------------------------------------------
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    emit("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
+         torch=torch.__version__, cuda=torch.version.cuda)
+    timer = Timer()
+
+    # ---- 2. build_kernels ------------------------------------------------
+    t0 = time.perf_counter()
+    started = {name: kernel_build.start_build(name) for name in (trace_bvh4.KERNEL_NAME,)}
+    for name, st in started.items():
+        kernel_build.finish_build(name, st)
+    trace_bvh4._load_kernel()
+    report = [ln for ln in kernel_build.build_log(trace_bvh4.KERNEL_NAME).splitlines()
+              if "registers" in ln or "spill" in ln]
+    emit("build_kernels", seconds=time.perf_counter() - t0,
+         library=os.path.relpath(kernel_build.library_path(trace_bvh4.KERNEL_NAME), HERE),
+         ptxas=report)
+
+    # ---- 3. kernel_vs_plain at the 65K-triangle / 512x512 shapes ---------
+    cases = []
+    mesh = rt.terrain_mesh(res=182, size=80.0, amplitude=9.0, seed=0)
+    scene = rt.build_scene(mesh)
+    bvh = rt.build_bvh(scene, builder="karras")
+    table = trace_bvh4.prepare_tables4(scene, bvh)
+    cam = rt.make_camera(eye=(55.0, 45.0, 70.0), target=(0.0, 0.0, 0.0),
+                         width=512, height=512)
+    o, d = generate_rays(cam)
+    o = dispatch._tile_major(o, 512, 512, 32).contiguous()
+    d = dispatch._tile_major(d, 512, 512, 32).contiguous()
+    st, first, _ = compare_kernel_with_plain(
+        "a: terrain 65,522 tris, 512x512 camera rays, tile-major",
+        trace_bvh4, parity, table, o, d)
+    cases.append(st)
+
+    # (c) t_init just above / just below the first pass (additive margin:
+    # t may be negative, there is no t>0 test).
+    t_first = first.t
+    hit = first.hit
+    eps = 0.01 * torch.clamp(t_first.abs(), min=1.0)
+    big = torch.full_like(t_first, float(MAX_FLOAT))
+    above = torch.where(hit, t_first + eps, big)
+    below = torch.where(hit, t_first - eps, big)
+    st, got_above, _ = compare_kernel_with_plain(
+        "c1: case a with t_init just above the first pass",
+        trace_bvh4, parity, table, o, d, t_init=above)
+    assert torch.equal(got_above.t[hit], t_first[hit]), "t_init above lost a hit"
+    cases.append(st)
+    st, got_below, _ = compare_kernel_with_plain(
+        "c2: case a with t_init just below the first pass",
+        trace_bvh4, parity, table, o, d, t_init=below)
+    assert not bool((got_below.t < below).any()), "t_init below was undercut"
+    cases.append(st)
+
+    # (d) the shadow rays of case a, any-hit mode: boolean identical.
+    first_rm = rt.HitRecord(
+        t=dispatch._row_major(first.t, 512, 512, 32),
+        tri=dispatch._row_major(first.tri, 512, 512, 32),
+        u=dispatch._row_major(first.u, 512, 512, 32),
+        v=dispatch._row_major(first.v, 512, 512, 32),
+    )
+    so, sd, bound = render.shadow_rays(scene, bvh, first_rm, cam)
+    bo, bd, thr, limit = dispatch.occlusion_rays(
+        scene, dispatch._tile_major(so, 512, 512, 32),
+        dispatch._tile_major(sd, 512, 512, 32), origin_bound=bound)
+    bo, bd = bo.contiguous(), bd.contiguous()
+    got = trace_bvh4.traverse_bvh4(table, bo, bd, anyhit_thresh=thr)
+    want = trace_bvh4.traverse_bvh4_plain(table, bo, bd, anyhit_thresh=thr)
+    occ_g = got.hit & (got.t < limit)
+    occ_w = want.hit & (want.t < limit)
+    assert torch.equal(occ_g, occ_w), "any-hit occlusion booleans differ"
+    cases.append({
+        "case": "d: shadow rays of case a, any-hit", "rays": int(occ_g.numel()),
+        "occluded": int(occ_g.sum()), "boolean_mismatches": 0,
+        "records_bit_identical": bool(
+            torch.equal(got.t, want.t) and torch.equal(got.tri, want.tri)),
+    })
+
+    # (b) incoherent rays through a triangle soup.
+    soup = rt.build_scene(rt.random_triangle_soup(65536, seed=0))
+    soup_bvh = rt.build_bvh(soup, builder="karras")
+    soup_table = trace_bvh4.prepare_tables4(soup, soup_bvh)
+    ro, rd = random_rays(65536, seed=1, bound=60.0)
+    st, _, _ = compare_kernel_with_plain(
+        "b: soup 65,536 tris, 65,536 random rays", trace_bvh4, parity,
+        soup_table, ro, rd)
+    _, soup_steps = trace_bvh4.traverse_bvh4(soup_table, ro, rd, count_steps=True)
+    st["kernel_ms_cold_l2"] = timer.median_ms(
+        lambda: trace_bvh4.traverse_bvh4(soup_table, ro, rd), cold=True)
+    st["records_per_ray"] = float(soup_steps.float().mean())
+    st["max_pops"] = int(soup_steps.max())
+    cases.append(st)
+    emit("kernel_vs_plain", tolerance="hit masks identical; t,u,v bit-identical "
+         "where tri agrees; tri differs only at exact-t ties (4e-6 relative)",
+         cases=cases)
+    del soup, soup_bvh, soup_table, scene, bvh, table
+
+    # ---- 4. main_path: 260,642 triangles, 1920x1056, shadows ------------
+    W, H = 1920, 1056
+    tex_rgba = (0.8, 0.7, 0.6, 1.0)
+    bg = np.asarray([0.1, 0.1, 0.12], np.float32)
+    png_path = os.path.join(out_dir, "chip_smoke_260k_1920x1056.png")
+
+    trace_bvh4.traverse_bvh4.launches = 0
+    mesh = rt.terrain_mesh(res=362, size=160.0, amplitude=20.0, seed=1)
+    scene = rt.build_scene(mesh)
+    bvh = rt.build_bvh(scene, builder="karras")
+    cam = rt.make_camera(eye=(110.0, 90.0, 140.0), target=(0.0, 0.0, 0.0),
+                         width=W, height=H)
+    tex = rt.solid_texture(tex_rgba)
+    frame = rt.render_frame(scene, bvh, cam, tex, bg, shadows=True)
+    image = rt.frame_to_image(frame)
+    write_png(png_path, image)
+    torch.cuda.synchronize()
+    main_launches = trace_bvh4.traverse_bvh4.launches
+    assert main_launches == 2, f"main path launched the kernel {main_launches} times, not 2"
+    assert mesh.num_triangles == 260642, mesh.num_triangles
+
+    assert image.shape == (H, W, 4) and np.isfinite(image).all(), "frame not finite"
+    assert read_png(png_path).shape == (H, W, 4)
+    hits = rt.render_hits(scene, bvh, cam)
+    rgba = rt.render_rgba(scene, bvh, cam, tex, shadows=True)
+    hit_mask = hits.hit.reshape(H, W)
+    assert torch.equal(rgba[..., 3] == 1.0, hit_mask), "alpha is not the hit mask"
+    assert bool(((rgba[..., 3] == 0.0) | (rgba[..., 3] == 1.0)).all())
+    hit_fraction = float(hit_mask.float().mean())
+    assert 0.05 < hit_fraction < 0.95, f"hit fraction {hit_fraction} out of band"
+    # Composition: miss pixels show the background exactly.
+    miss_rgb = frame[..., :3][~hit_mask]
+    assert torch.equal(miss_rgb, torch.from_numpy(bg).cuda().expand_as(miss_rgb))
+
+    # Stage times (CUDA events, median of 5 after a warm-up).
+    table = trace_bvh4.prepare_tables4(scene, bvh)
+    before = trace_bvh4.traverse_bvh4.launches
+    frame_ms = timer.median_ms(
+        lambda: rt.render_frame(scene, bvh, cam, tex, bg, shadows=True), iters=5)
+    assert trace_bvh4.traverse_bvh4.launches - before == 2 * 6, "not 2 launches per frame"
+    frame_noshadow_ms = timer.median_ms(
+        lambda: rt.render_frame(scene, bvh, cam, tex, bg), iters=5)
+
+    t0 = time.perf_counter()
+    rt.build_scene(mesh)
+    torch.cuda.synchronize()
+    ingest_ms = (time.perf_counter() - t0) * 1e3
+    keys, sorted_tri = sort.sort_key_val(scene.morton, scene.tri_index)
+    ukeys = unique.distribute_keys(keys, scene.count)
+    topo = lbvh.build_topology(ukeys, scene.count, with_parents=False)
+    stages = {
+        "ingest_host_to_device": ingest_ms,
+        "build": timer.median_ms(lambda: rt.build_bvh(scene, builder="karras")),
+        "build_sort": timer.median_ms(
+            lambda: sort.sort_key_val(scene.morton, scene.tri_index)),
+        "build_distribute_keys": timer.median_ms(
+            lambda: unique.distribute_keys(keys, scene.count)),
+        "build_topology": timer.median_ms(
+            lambda: lbvh.build_topology(ukeys, scene.count, with_parents=False)),
+        "build_refit": timer.median_ms(
+            lambda: lbvh.refit(topo[6], topo[7], sorted_tri, scene.aabb_min,
+                               scene.aabb_max, scene.count)),
+        # A fresh Bvh each time, so the pack pays the depth chase, the plan
+        # and the gathers (no cache).
+        "table_pack": timer.median_ms(
+            lambda: trace_bvh4.prepare_tables4(scene, bvh.replace(left=bvh.left.clone())),
+            iters=3),
+        "primary_trace": timer.median_ms(
+            lambda: dispatch.camera_trace(scene, bvh, cam, impl="cuda4", tables=table)),
+        "shadow_trace": timer.median_ms(
+            lambda: render._shadow_mask(scene, bvh, hits, "cuda4", cam, table)),
+    }
+    shadow = render._shadow_mask(scene, bvh, hits, "cuda4", cam, table)
+    bg_dev = torch.from_numpy(bg).cuda().expand(H, W, 3)
+    stages["shade_compose"] = timer.median_ms(
+        lambda: trace.compose(
+            bg_dev, trace.shade(scene, tex, hits, shadow=shadow).reshape(H, W, 4)))
+    stages["frame_with_shadows"] = frame_ms
+    stages["frame_without_shadows"] = frame_noshadow_ms
+    n_rays = W * H
+    records_260k = int(table.shape[0])
+    emit("main_path", triangles=mesh.num_triangles, width=W, height=H,
+         primary_rays=n_rays, shadow_rays=n_rays, records=int(table.shape[0]),
+         table_mb=table.numel() * 4 / 2**20, kernel_launches=main_launches,
+         launches_per_frame=2, hit_fraction=hit_fraction,
+         shadowed_fraction=float(shadow.float().mean()), png=png_path,
+         stage_ms=stages, mrays_per_s=2 * n_rays / frame_ms / 1e3, nvidia_smi=smi)
+
+    # The kernel at the main path's shapes: against its plain version, timed
+    # alone (cold L2 before each launch), with the work this run's data needs.
+    o, d = generate_rays(cam)
+    o = dispatch._tile_major(o, H, W, 32).contiguous()
+    d = dispatch._tile_major(d, H, W, 32).contiguous()
+    work_p = {}
+    t0 = time.perf_counter()
+    st_p, _, _ = compare_kernel_with_plain(
+        "e: main-path primary rays", trace_bvh4, parity, table, o, d, work=work_p)
+    so, sd, bound = render.shadow_rays(scene, bvh, hits, cam)
+    bo, bd, thr, limit = dispatch.occlusion_rays(
+        scene, dispatch._tile_major(so, H, W, 32), dispatch._tile_major(sd, H, W, 32),
+        origin_bound=bound)
+    bo, bd = bo.contiguous(), bd.contiguous()
+    work_s = {}
+    got = trace_bvh4.traverse_bvh4(table, bo, bd, anyhit_thresh=thr)
+    want = trace_bvh4.traverse_bvh4_plain(table, bo, bd, anyhit_thresh=thr, work=work_s)
+    assert torch.equal(got.hit & (got.t < limit), want.hit & (want.t < limit))
+    assert torch.equal(got.t, want.t) and torch.equal(got.tri, want.tri)
+    compare_s = time.perf_counter() - t0
+
+    ms_primary = timer.median_ms(
+        lambda: trace_bvh4.traverse_bvh4(table, o, d), iters=7, cold=True)
+    ms_shadow = timer.median_ms(
+        lambda: trace_bvh4.traverse_bvh4(table, bo, bd, anyhit_thresh=thr),
+        iters=7, cold=True)
+    ms_primary_warm = timer.median_ms(lambda: trace_bvh4.traverse_bvh4(table, o, d), iters=7)
+    plain_ms = timer.median_ms(
+        lambda: trace_bvh4.traverse_bvh4_plain(table, o, d), iters=1, warmup=0)
+    plain_shadow_ms = timer.median_ms(
+        lambda: trace_bvh4.traverse_bvh4_plain(table, bo, bd, anyhit_thresh=thr),
+        iters=1, warmup=0)
+    _, steps_p = trace_bvh4.traverse_bvh4(table, o, d, count_steps=True)
+    _, steps_s = trace_bvh4.traverse_bvh4(table, bo, bd, anyhit_thresh=thr, count_steps=True)
+    pops_p, pops_s = int(steps_p.sum()), int(steps_s.sum())
+    roof_p = roofline_ms(n_rays, 0, 0, work_p["records_visited"], pops_p, work_p["leaf_tests"])
+    roof_s = roofline_ms(n_rays, 0, 1, work_s["records_visited"], pops_s, work_s["leaf_tests"])
+    requested_p = pops_p * 256
+    emit("kernel_at_main_path_shapes", compare=st_p, compare_seconds=compare_s,
+         shadow_records_bit_identical=True,
+         primary={"ms_cold_l2": ms_primary, "ms_warm_l2": ms_primary_warm,
+                  "plain_ms": plain_ms, "pops": pops_p,
+                  "records_per_ray": pops_p / n_rays, "max_pops": int(steps_p.max()),
+                  **work_p, **roof_p, "requested_bytes": requested_p,
+                  "requested_bytes_ms_at_hbm_rate": requested_p / PEAK_BYTES_PER_S * 1e3},
+         shadow={"ms_cold_l2": ms_shadow, "plain_ms": plain_shadow_ms, "pops": pops_s,
+                 "records_per_ray": pops_s / n_rays, "max_pops": int(steps_s.max()),
+                 **work_s, **roof_s, "requested_bytes": pops_s * 256},
+         nvidia_smi=smi)
+    if args.profile:
+        emit("profile_260k_frame_with_shadows", nvidia_smi=smi, **profile_frames(
+            lambda: rt.render_frame(scene, bvh, cam, tex, bg, shadows=True), frame_ms))
+        # Forms of one 2 M-row gather of 16-byte texel rows (why
+        # sample_bilinear gathers the way it does), in turns within this call.
+        flat = tex.data.reshape(-1, 4)
+        idx = torch.randint(0, flat.shape[0], (n_rays,), device="cuda")
+        cols = torch.arange(4, device="cuda")
+        forms = {
+            "advanced_indexing": lambda: flat[idx],
+            "index_select": lambda: flat.index_select(0, idx),
+            "gather_expanded_index": lambda: torch.gather(
+                flat, 0, idx[:, None].expand(-1, 4)),
+            "flat_elements": lambda: flat.reshape(-1)[idx[:, None] * 4 + cols],
+        }
+        order = list(forms) + list(forms)[::-1]
+        want_rows = forms["advanced_indexing"]()
+        emit("gather_form_ab", rows=n_rays, row_bytes=16, nvidia_smi=smi,
+             ms_in_turns=[[k, timer.median_ms(forms[k])] for k in order],
+             same_values=all(bool(torch.equal(f(), want_rows)) for f in forms.values()))
+    del scene, bvh, table, hits, rgba, frame, shadow, o, d, bo, bd, so, sd, got, want
+
+    # ---- 5. main_path_1m: 1,048,352 triangles, one tree, 512x512 --------
+    mesh = rt.terrain_mesh(res=725, size=300.0, amplitude=30.0, seed=0)
+    assert mesh.num_triangles == 1048352, mesh.num_triangles
+    before = trace_bvh4.traverse_bvh4.launches
+    t0 = time.perf_counter()
+    scene = rt.build_scene(mesh)
+    bvh = rt.build_bvh(scene, builder="karras")
+    cam = rt.make_camera(eye=(210.0, 170.0, 260.0), target=(0.0, 0.0, 0.0),
+                         width=512, height=512)
+    frame = rt.render_frame(scene, bvh, cam, tex, bg)
+    torch.cuda.synchronize()
+    first_frame_s = time.perf_counter() - t0
+    assert trace_bvh4.traverse_bvh4.launches - before == 1
+    assert bool(torch.isfinite(frame).all()) and tuple(frame.shape) == (512, 512, 4)
+    frame_1m_ms = timer.median_ms(
+        lambda: rt.render_frame(scene, bvh, cam, tex, bg), iters=3)
+    build_1m_ms = timer.median_ms(lambda: rt.build_bvh(scene, builder="karras"), iters=3)
+    torch.cuda.reset_peak_memory_stats()
+    rt.build_bvh(scene, builder="karras")
+    build_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    table = trace_bvh4.prepare_tables4(scene, bvh)
+    o, d = generate_rays(cam)
+    pick = torch.linspace(0, 512 * 512 - 1, 4096, device="cuda").long()
+    oo, dd = o[pick].contiguous(), d[pick].contiguous()
+    ref = dispatch.trace_rays(scene, bvh, oo, dd, impl="perray")
+    got = dispatch.trace_rays(scene, bvh, oo, dd, impl="cuda4")
+    oracle = parity.assert_hit_parity(np_hits(got), np_hits(ref), uv_atol=1e-5)
+    hits_1m = rt.render_hits(scene, bvh, cam)
+    emit("main_path_1m", triangles=mesh.num_triangles, width=512, height=512,
+         records=int(table.shape[0]), table_mb=table.numel() * 4 / 2**20,
+         first_frame_seconds_with_ingest_build_pack=first_frame_s,
+         frame_ms=frame_1m_ms, build_ms=build_1m_ms, build_peak_gb=build_peak_gb,
+         hit_fraction=float(hits_1m.hit.float().mean()),
+         oracle_check_vs_perray_bvh2=oracle, nvidia_smi=smi)
+    del scene, bvh, table, frame, o, d, hits_1m
+
+    # ---- 6. golden: frames rendered on the card through the kernel -------
+    before = trace_bvh4.traverse_bvh4.launches
+    sol = rt.solid_texture((0.9, 0.6, 0.3, 1.0))
+    goldens = {}
+    scene = rt.build_scene(rt.cube_mesh(size=2.0))
+    bvh = rt.build_bvh(scene, builder="karras")
+    cam = rt.make_camera(eye=(3, 2.5, 4), target=(0, 0, 0), width=128, height=96)
+    f = rt.render_frame(scene, bvh, cam, sol, np.asarray([0.1, 0.1, 0.12], np.float32))
+    goldens["cube_128x96.png"] = parity.compare_images(
+        parity.frame_to_uint8(rt.frame_to_image(f)),
+        read_png(os.path.join(GOLDEN_DIR, "cube_128x96.png")), "cube_128x96.png")
+    scene = rt.build_scene(rt.terrain_mesh(res=48, size=40.0, amplitude=6.0, seed=0))
+    bvh = rt.build_bvh(scene, builder="karras")
+    cam = rt.make_camera(eye=(30, 25, 38), target=(0, 0, 0), width=128, height=96)
+    f = rt.render_frame(scene, bvh, cam, sol, np.asarray([0.05, 0.05, 0.08], np.float32),
+                        shadows=True)
+    goldens["terrain_shadow_128x96.png"] = parity.compare_images(
+        parity.frame_to_uint8(rt.frame_to_image(f)),
+        read_png(os.path.join(GOLDEN_DIR, "terrain_shadow_128x96.png")),
+        "terrain_shadow_128x96.png")
+    assert trace_bvh4.traverse_bvh4.launches - before == 3
+    emit("golden", tolerance="more than 2/255 off on fewer than 0.2% of values",
+         fraction_off=goldens)
+
+    # ---- 7. kernels ------------------------------------------------------
+    print(smi, flush=True)
+    print(json.dumps({"kernels": [{
+        "name": "trace_bvh4",
+        "route": "cuda",
+        "source": "unitysimpleraytracing_tpu_torch/csrc/trace_bvh4.cu",
+        "replaces": "unitysimpleraytracing_tpu/ops/trace_pallas4.py:366",
+        "replaces_function": "ops/trace_pallas4.py::_make_kernel4",
+        "launches": main_launches,
+        "max_abs_err": st_p["max_abs_err"],
+        "ms": ms_primary,
+        "ms_primary": ms_primary,
+        "ms_shadow": ms_shadow,
+        "plain_ms": plain_ms,
+        "records_per_ray": pops_p / n_rays,
+        "bound_ms": roof_p["bound_ms"],
+        "bound_by": roof_p["bound_by"],
+        "bound_ms_shadow": roof_s["bound_ms"],
+        "library_ms": None,
+        "shape": f"{n_rays} rays over a ({records_260k}, 64) float32 table",
+    }]}), flush=True)
+    emit("done", seconds=time.perf_counter() - t_script)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

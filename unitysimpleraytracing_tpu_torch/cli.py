@@ -1,0 +1,218 @@
+"""Headless CLI: render an OBJ (+ optional PNG texture) to a PNG image.
+
+    python -m unitysimpleraytracing_tpu_torch.cli scene.obj out.png \\
+        --texture tex.png --width 640 --height 480 --eye 3 2 4
+
+Runs on the card by default (``--device cuda``; it fails without one) or on
+the CPU with ``--device cpu``.  ``--orbit N`` renders an N-frame camera orbit
+around the target — the reference re-dispatches the traversal every
+``Update()`` against the Awake-built BVH (RaytracingMeshDrawer.cs:76-84); here
+the record table is likewise packed once and reused across frames, and the
+steady-state per-frame ms is reported.  ``--background-image`` composites over
+a real image instead of a solid color (ImageComposer.shader:44-53).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def orbit_eyes(eye, target, n: int):
+    """Eye positions of an n-frame full-revolution orbit about the target's
+    vertical (y) axis, starting at ``eye`` (frame 0 == the static camera)."""
+    import numpy as np
+
+    rel = np.asarray(eye, np.float64) - np.asarray(target, np.float64)
+    out = []
+    for i in range(n):
+        ang = 2.0 * np.pi * i / n
+        c, s = np.cos(ang), np.sin(ang)
+        out.append(
+            np.asarray(target)
+            + np.array([rel[0] * c + rel[2] * s, rel[1], -rel[0] * s + rel[2] * c])
+        )
+    return out
+
+
+def _resize_nearest(img, h: int, w: int):
+    """Nearest-neighbor resample of an (H0, W0, C) image to (h, w, C) —
+    background plates only (the raster image the traced layer blends over)."""
+    import numpy as np
+
+    h0, w0 = img.shape[:2]
+    ys = (np.arange(h) * h0 // h).clip(0, h0 - 1)
+    xs = (np.arange(w) * w0 // w).clip(0, w0 - 1)
+    return img[ys[:, None], xs[None, :]]
+
+
+_NOT_PORTED = {
+    "orbit_batch": "--orbit-batch (render_frames)",
+    "bvh_cache": "--bvh-cache (io/checkpoint)",
+    "gizmo": "--gizmo (utils/visualize)",
+    "gizmo_tris": "--gizmo-tris (utils/visualize)",
+}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="LBVH raytracer (PyTorch/CUDA port)")
+    ap.add_argument("obj")
+    ap.add_argument("out")
+    ap.add_argument("--texture", default=None)
+    ap.add_argument("--width", type=int, default=640)
+    ap.add_argument("--height", type=int, default=480)
+    ap.add_argument("--fov", type=float, default=60.0)
+    ap.add_argument("--eye", type=float, nargs=3, default=None)
+    ap.add_argument("--target", type=float, nargs=3, default=(0.0, 0.0, 0.0))
+    ap.add_argument("--background", type=float, nargs=3, default=(0.12, 0.12, 0.15))
+    ap.add_argument(
+        "--background-image", default=None,
+        help="PNG to composite the traced layer over (the reference's "
+        "raster frame; resized to the render resolution)",
+    )
+    ap.add_argument(
+        "--orbit", type=int, default=0, metavar="N",
+        help="render an N-frame camera orbit around the target; frame i is "
+        "written to OUT with '_NNN' appended; reports steady-state ms/frame",
+    )
+    ap.add_argument("--flip-x", action="store_true", help="Unity-style OBJ import")
+    ap.add_argument(
+        "--subdivide", type=int, default=0,
+        help="midpoint-subdivide the mesh N times (4x tris per level)",
+    )
+    ap.add_argument(
+        "--displace", type=float, default=0.0,
+        help="with --subdivide: crack-free smooth displacement amplitude "
+        "along normals (a pure function of position)",
+    )
+    ap.add_argument(
+        "--builder", default="karras", choices=["karras", "sah", "sah_free"],
+        help="BVH topology; default 'karras' (the reference's radix tree, "
+        "BVH.compute:94-149), the only builder ported so far — the SAH "
+        "builders exit with a 'not ported yet' error",
+    )
+    ap.add_argument("--shadows", action="store_true", help="shadow-ray pass")
+    ap.add_argument(
+        "--device", default="cuda", choices=["cuda", "cpu"],
+        help="where to run; 'cuda' (default) fails when no card is present",
+    )
+    ap.add_argument("--orbit-batch", action="store_true", help="not ported yet")
+    ap.add_argument("--bvh-cache", default=None, metavar="PATH.npz", help="not ported yet")
+    ap.add_argument("--gizmo", action="store_true", help="not ported yet")
+    ap.add_argument("--gizmo-tris", action="store_true", help="not ported yet")
+    ap.add_argument("--gizmo-index", type=int, default=-1, help="not ported yet")
+    args = ap.parse_args(argv)
+
+    for attr, what in _NOT_PORTED.items():
+        if getattr(args, attr):
+            ap.error(f"{what} is not ported yet (see ROADMAP.md, queue 1)")
+    if args.builder != "karras":
+        ap.error(f"--builder {args.builder} is not ported yet (ROADMAP.md, queue 1 item 8)")
+
+    import numpy as np
+    import torch
+
+    import unitysimpleraytracing_tpu_torch as rt
+    from unitysimpleraytracing_tpu_torch.io.png import read_png, write_png
+    from unitysimpleraytracing_tpu_torch.ops.dispatch import MAX_CAPACITY
+    from unitysimpleraytracing_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    t0 = time.perf_counter()
+    mesh = rt.load_obj(args.obj, flip_x=args.flip_x)
+    if args.subdivide:
+        mesh = rt.subdivide_mesh(
+            mesh, levels=args.subdivide, displace=args.displace
+        )
+    print(f"loaded {mesh.num_triangles} triangles in {time.perf_counter()-t0:.2f}s")
+    if rt.constants.pad_count(mesh.num_triangles) > MAX_CAPACITY:
+        ap.error(
+            f"{mesh.num_triangles} triangles exceed the single-tree envelope "
+            f"({MAX_CAPACITY}); the chunked large-scene path is not ported "
+            "yet (ROADMAP.md, queue 1 item 10)"
+        )
+
+    scene = rt.build_scene(mesh, device=device)
+    t0 = time.perf_counter()
+    bvh = rt.build_bvh(scene, builder=args.builder)
+    sync()
+    print(f"BVH built in {time.perf_counter()-t0:.3f}s")
+
+    lo = mesh.positions.min(axis=(0, 1))
+    hi = mesh.positions.max(axis=(0, 1))
+    center = (lo + hi) / 2
+    diag = float(np.linalg.norm(hi - lo))
+    if args.eye is None:
+        eye = center + np.array([0.8, 0.6, 1.2]) * diag
+        target = center
+    else:
+        eye, target = np.asarray(args.eye, np.float64), np.asarray(args.target)
+
+    if args.texture:
+        tex = rt.load_texture(args.texture, device=device)
+    else:
+        tex = rt.solid_texture((0.8, 0.8, 0.8, 1.0), device=device)
+    if args.background_image:
+        bg_img = read_png(args.background_image).astype(np.float32) / 255.0
+        background = np.ascontiguousarray(
+            _resize_nearest(bg_img[..., :3], args.height, args.width)[::-1]
+        )  # file is top-down; frames are bottom-up (UAV orientation)
+    else:
+        background = np.asarray(args.background, np.float32)
+    background = torch.from_numpy(background).to(device)
+
+    def cam_at(eye_pos):
+        return rt.make_camera(
+            eye=eye_pos, target=target,
+            width=args.width, height=args.height, fov_deg=args.fov,
+            device=device,
+        )
+
+    def do_frame(cam):
+        frame = rt.render_frame(
+            scene, bvh, cam, tex, background, shadows=args.shadows
+        )
+        sync()
+        return frame
+
+    if args.orbit <= 0:
+        cam = cam_at(eye)
+        t0 = time.perf_counter()
+        frame = do_frame(cam)
+        dt = time.perf_counter() - t0
+        mrays = args.width * args.height / dt / 1e6
+        print(
+            f"rendered {args.width}x{args.height} in {dt:.3f}s "
+            f"({mrays:.2f} Mrays/s, first frame: includes the table pack "
+            "and, on the card, the kernel build)"
+        )
+        write_png(args.out, rt.frame_to_image(frame))
+        print(f"wrote {args.out}")
+        return
+
+    # Camera orbit: rotate the eye about the target's vertical axis, one
+    # full revolution over N frames — the reference's per-frame Update loop.
+    stem, dot, ext = args.out.rpartition(".")
+    stem = stem or args.out
+    times = []
+    for i, eye_i in enumerate(orbit_eyes(eye, target, args.orbit)):
+        cam = cam_at(eye_i)
+        t0 = time.perf_counter()
+        frame = do_frame(cam)
+        times.append(time.perf_counter() - t0)
+        write_png(f"{stem}_{i:03d}.{ext or 'png'}", rt.frame_to_image(frame))
+    steady = float(np.median(times[1:])) if len(times) > 1 else times[0]
+    print(
+        f"orbit {args.orbit} frames {args.width}x{args.height}: "
+        f"first {times[0]*1e3:.1f} ms, steady {steady*1e3:.1f} ms/frame "
+        f"({args.width*args.height/steady/1e6:.2f} Mrays/s)"
+    )
+    print(f"wrote {stem}_000.{ext or 'png'} .. {stem}_{args.orbit-1:03d}.{ext or 'png'}")
+
+
+if __name__ == "__main__":
+    main()

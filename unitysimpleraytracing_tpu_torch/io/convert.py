@@ -1,0 +1,87 @@
+"""Carry state between numpy (or anything ``np.asarray`` accepts, such as the
+JAX package's containers) and the port's containers.
+
+Inputs are plain dicts, or any object with the same field names, of arrays.
+With these a test hands a JAX-built ``Scene``/``Bvh`` to the port's table
+packer, traversal and renderer, and port-built ones back for bit comparison.
+Morton codes are uint32 on the numpy side and int64 inside the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from unitysimpleraytracing_tpu_torch.core.camera import Camera
+from unitysimpleraytracing_tpu_torch.core.texture import Texture
+from unitysimpleraytracing_tpu_torch.core.types import Bvh, Scene, Triangles
+from unitysimpleraytracing_tpu_torch.utils.device import resolve_device
+
+
+def _get(d, name):
+    return d[name] if isinstance(d, dict) else getattr(d, name)
+
+
+def _tensor(x, device, dtype=None) -> torch.Tensor:
+    arr = np.ascontiguousarray(np.asarray(x))
+    if arr.dtype == np.uint32:
+        arr = arr.astype(np.int64)
+    t = torch.from_numpy(arr.copy()).to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def _from_fields(cls, d, device, static=("count", "width", "height")):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = _get(d, f.name)
+        kw[f.name] = int(v) if f.name in static else _tensor(v, device)
+    return cls(**kw)
+
+
+def triangles_from_numpy(d, device=None) -> Triangles:
+    return _from_fields(Triangles, d, resolve_device(device))
+
+
+def scene_from_numpy(d, device=None) -> Scene:
+    """Scene from a dict/object with the Scene field names; ``morton`` may be
+    uint32 (converted to the port's int64 convention)."""
+    device = resolve_device(device)
+    return Scene(
+        triangles=triangles_from_numpy(_get(d, "triangles"), device),
+        aabb_min=_tensor(_get(d, "aabb_min"), device),
+        aabb_max=_tensor(_get(d, "aabb_max"), device),
+        morton=_tensor(_get(d, "morton"), device, torch.int64),
+        tri_index=_tensor(_get(d, "tri_index"), device, torch.int32),
+        count=int(_get(d, "count")),
+    )
+
+
+def bvh_from_numpy(d, device=None) -> Bvh:
+    return _from_fields(Bvh, d, resolve_device(device))
+
+
+def camera_from_numpy(d, device=None) -> Camera:
+    return _from_fields(Camera, d, resolve_device(device))
+
+
+def texture_from_numpy(d, device=None) -> Texture:
+    return _from_fields(Texture, d, resolve_device(device))
+
+
+def to_numpy(obj):
+    """Inverse: a container of the port → a dict of numpy arrays (nested for
+    ``Scene.triangles``); ``Scene.morton`` comes back as uint32."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            out[f.name] = to_numpy(v)
+        elif isinstance(v, torch.Tensor):
+            arr = v.detach().cpu().numpy()
+            if f.name == "morton":
+                arr = arr.astype(np.uint32)
+            out[f.name] = arr
+        else:
+            out[f.name] = v
+    return out

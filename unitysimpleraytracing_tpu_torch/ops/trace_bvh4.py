@@ -1,0 +1,558 @@
+"""Wide-record (BVH4) traversal: record tables, the CUDA kernel's wrapper,
+and the plain PyTorch version of the same traversal.
+
+Counterpart of ``unitysimpleraytracing_tpu/ops/trace_pallas4.py``.  One
+4-child record per stack entry, built by collapsing Karras pairs — one record
+fetch + four slab tests advance a ray TWO tree levels.
+
+- **Node set**: internal Karras nodes at EVEN depth (root = 0).  Each BVH4
+  node X expands its two BVH2 children in place: an internal child
+  contributes its OWN two children (X's grandchildren) as entries, a leaf
+  child contributes itself, the vacant slot is an inert EMPTY entry
+  (inverted box → slab always fails; leaf bit + zero verts → det==0 reject).
+  Internal entries are even-depth nodes again, so traversal only ever sees
+  BVH4 nodes.  The table is allocated at the ACTUAL compacted count.
+- **Record = 64 f32 slots** (4 child boxes 24, 4 metas 4, 4×9 embedded leaf
+  triangles 36 — stored PRE-DIFFERENCED as (a, e1=b−a, e2=c−a); the f32
+  subtraction moves from the traversal to pack time bit-unchanged).  One
+  layout: a ``(cap4, 64)`` float32 table in global memory.
+- **Meta slot** (f32-exact, < 2^24): ``idx + is_leaf<<21 + axis<<22`` where
+  idx is the entry's BVH4 node id (internal) or triangle id (leaf); meta0's
+  axis is X's own split axis (orders the two pairs), meta1/meta2's axes are
+  X's left/right BVH2 children's split axes (order within each pair).  The
+  21-bit ids are the single-tree envelope of this path.
+
+Traversal order within a record: nearest-first over (pair by X's axis) ×
+(entry by the pair's axis) against the RAY'S OWN direction signs, pushed in
+reverse; the strict-< hit keep makes order affect only exact-t ties.
+
+Kernel note.  `traverse_bvh4` launches ``csrc/trace_bvh4.cu``, the
+hand-written CUDA kernel that replaces the TPU kernel
+``ops/trace_pallas4.py::_make_kernel4``: one thread per ray with a private
+64-entry stack.  On this card the walk is bound by the latency of dependent
+256-byte record fetches (mostly served by L2 when rays arrive in 32×32
+tile-major order), not by bytes or operations; the design keeps the fetch
+small (16-byte loads, leaf vertices only when the entry's box was hit) and
+leaves warp-cooperative traversal to later work.  Its roofline bound is bytes
+(rays in, hits out, each distinct record once): on an H100 80GB HBM3 at 700 W
+``chip_smoke.py`` measured 0.33 ms against a 0.030 ms bound for 2,027,520
+camera rays over 130,424 records.  `traverse_bvh4_plain` is
+the same traversal in plain PyTorch with the same arithmetic order; the CPU
+tests use it and ``chip_smoke.py`` holds the kernel against it bit for bit.
+
+Reference mapping: same acceptance contract as Raytracing.compute:37-103
+(slab ``tmax>tmin && tmax>0``, Möller–Trumbore det/u/v rejects, no t>0 test).
+"""
+from __future__ import annotations
+
+import ctypes
+import weakref
+
+import torch
+
+from unitysimpleraytracing_tpu_torch import constants as C
+from unitysimpleraytracing_tpu_torch.core.types import Bvh, HitRecord, Scene
+from unitysimpleraytracing_tpu_torch.ops import lbvh
+from unitysimpleraytracing_tpu_torch.utils import kernel_build
+
+_SLOTS4 = 64
+_IDX_BITS = 21
+_IDX_MASK = (1 << _IDX_BITS) - 1
+KERNEL_NAME = "trace_bvh4"
+# trace_rays pads ray batches to whole warps.
+RAY_MULTIPLE = 32
+
+# id(bvh.left) -> (weakref(left), mask, new_id, count, plans).  Keyed by the
+# TOPOLOGY tensor's identity, not the Bvh object's: refit_bvh replaces only
+# the box fields, so a refit-per-frame loop reuses the even-depth membership
+# (the pointer-doubling depth pass is the expensive part of repacking) and
+# the cap4 -> (src_idx, metas) pack plans.
+_TOPO_CACHE: dict = {}
+# id(bvh) -> (weakref(bvh), weakref(scene), table)
+_TABLE4_CACHE: dict = {}
+
+
+def _node_mask_compute(bvh: Bvh):
+    cap = bvh.left.shape[0]
+    dev = bvh.left.device
+    ids = torch.arange(cap, dtype=torch.int32, device=dev)
+    valid = ids < bvh.count - 1
+    # Parent links may be absent (-1-filled non-diagnostic build): recompute.
+    iparent, _ = lbvh.parent_links(
+        bvh.left, bvh.right, bvh.left_is_leaf, bvh.right_is_leaf, valid
+    )
+    depth = lbvh.compute_depths(iparent, bvh.count)
+    mask = valid & (depth % 2 == 0)
+    new_id = torch.cumsum(mask, dim=0, dtype=torch.int32) - 1
+    return mask, new_id
+
+
+def _node_mask_cached(bvh: Bvh):
+    """(mask, new_id, count): count is the host int record count (cached —
+    it costs a device→host sync, which a refit-per-frame loop must not
+    repay)."""
+    key = id(bvh.left)
+    ent = _TOPO_CACHE.get(key)
+    if ent is not None and ent[0]() is bvh.left:
+        return ent[1], ent[2], ent[3]
+    mask, new_id = _node_mask_compute(bvh)
+    count = int(mask.sum())
+    ref = weakref.ref(bvh.left, lambda _r, _k=key: _TOPO_CACHE.pop(_k, None))
+    _TOPO_CACHE[key] = (ref, mask, new_id, count, {})
+    return mask, new_id, count
+
+
+def bvh4_node_mask(bvh: Bvh):
+    """(mask, new_id): even-depth internal nodes and their compacted ids.
+
+    Cached per topology (identity of the child-link tensor), so refit-only
+    rebuilds skip the depth chase."""
+    mask, new_id, _ = _node_mask_cached(bvh)
+    return mask, new_id
+
+
+def _pack_plan4(bvh: Bvh, mask, new_id, cap4: int):
+    """Topology-only half of the table pack: per-record-row entry SOURCE
+    indices into the unified geometry source array (_apply_plan4's ``S``)
+    plus the constant meta columns.
+
+    A deforming mesh changes boxes and vertices but not the tree, so this
+    plan is computed once per topology and cached; the per-frame repack
+    replays only the geometry gathers."""
+    cap = bvh.capacity
+    dev = bvh.left.device
+    left, right = bvh.left.to(torch.int64), bvh.right.to(torch.int64)
+    sorted_tri = bvh.sorted_tri.to(torch.int64)
+    new_id64 = new_id.to(torch.int64)
+    split_axis = bvh.split_axis.to(torch.int64)
+
+    Lc = left.clamp(0, cap - 1)
+    Rc = right.clamp(0, cap - 1)
+    Ll, Rl = bvh.left_is_leaf, bvh.right_is_leaf
+
+    def grand(c):
+        """BVH2 children of node c (as entry candidates)."""
+        return (
+            left[c].clamp(0, cap - 1), bvh.left_is_leaf[c],
+            right[c].clamp(0, cap - 1), bvh.right_is_leaf[c],
+        )
+
+    LL, LLl, LR, LRl = grand(Lc)
+    RL, RLl, RR, RRl = grand(Rc)
+
+    def entry(node2, is_leaf, present):
+        """Source row + meta fields for one entry: leaf entries read row
+        cap+tri (triangle geometry), internal entries read row node2 (node
+        boxes), absent entries read the inert EMPTY row 2·cap."""
+        tri = sorted_tri[node2]
+        src = torch.where(is_leaf, cap + tri, node2)
+        src = torch.where(present, src, 2 * cap)
+        idx = torch.where(is_leaf, tri, new_id64[node2])
+        idx = torch.where(present, idx, 0)
+        leaf_bit = torch.where(present, is_leaf.to(torch.int64), 1)
+        return src, idx, leaf_bit
+
+    true_ = torch.ones((cap,), dtype=torch.bool, device=dev)
+    e0 = entry(torch.where(Ll, Lc, LL), Ll | LLl, true_)
+    e1 = entry(LR, LRl, ~Ll)
+    e2 = entry(torch.where(Rl, Rc, RL), Rl | RLl, true_)
+    e3 = entry(RR, RRl, ~Rl)
+
+    # Near-child ordering axes: record's own split axis + each pair's axis.
+    ax_self = split_axis.clamp(0, 2)
+    ax_l = torch.where(Ll, 0, split_axis[Lc].clamp(0, 2))
+    ax_r = torch.where(Rl, 0, split_axis[Rc].clamp(0, 2))
+    axes = (ax_self, ax_l, ax_r, torch.zeros_like(ax_self))
+
+    srcs = torch.stack([e[0] for e in (e0, e1, e2, e3)], dim=1)  # (cap, 4)
+    metas = torch.stack(
+        [
+            (e[1] + (e[2] << _IDX_BITS) + (ax << (_IDX_BITS + 1))).to(torch.float32)
+            for e, ax in zip((e0, e1, e2, e3), axes)
+        ],
+        dim=1,
+    )  # (cap, 4)
+
+    # Compact mask rows to their new ids (record-table row r reads BVH2 node
+    # rows[r]); padding rows replicate node 0's entries — never referenced.
+    rows = torch.zeros((cap4,), dtype=torch.int64, device=dev)
+    rows[new_id64[mask]] = mask.nonzero(as_tuple=True)[0]
+    return srcs[rows], metas[rows]  # (cap4, 4) each
+
+
+def _apply_plan4(scene: Scene, bvh: Bvh, src_idx, metas):
+    """Geometry-only half of the table pack: build the unified source array
+    and gather each entry's 15 slots (6 box + 9 pre-differenced verts) by the
+    plan's source rows."""
+    cap = bvh.capacity
+    dev = bvh.left.device
+    t = scene.triangles
+    BIG = 3.0e38
+    f32 = dict(dtype=torch.float32, device=dev)
+    # Rows [0, cap): internal BVH2 nodes (boxes; verts inert zeros).
+    # Rows [cap, 2cap): triangles (leaf box + (a, e1=b−a, e2=c−a) — the
+    # pre-differenced Möller–Trumbore form).
+    # Row 2cap: the inert EMPTY entry (inverted box, zero verts).
+    S = torch.cat(
+        [
+            torch.cat(
+                [bvh.node_aabb_min, bvh.node_aabb_max, torch.zeros((cap, 9), **f32)],
+                dim=1,
+            ),
+            torch.cat(
+                [scene.aabb_min, scene.aabb_max, t.a, t.b - t.a, t.c - t.a], dim=1
+            ),
+            torch.cat(
+                [torch.full((1, 3), BIG, **f32), torch.full((1, 3), -BIG, **f32),
+                 torch.zeros((1, 9), **f32)],
+                dim=1,
+            ),
+        ],
+        dim=0,
+    )  # (2·cap + 1, 15)
+
+    # Cull-margin widening for scene extents beyond ~8e3: boxes grow by a
+    # few ULPs of the extent so rounding in the slab test cannot cull a
+    # child whose triangle test would have hit.
+    root = torch.maximum(
+        bvh.node_aabb_min[0].abs().max(), bvh.node_aabb_max[0].abs().max()
+    )
+    widen = torch.clamp(root - 8192.0, min=0.0) * 4e-6
+
+    g = [S[src_idx[:, e]] for e in range(4)]  # 4 × (cap4, 15)
+    return torch.cat(
+        [torch.cat([ge[:, 0:3] - widen, ge[:, 3:6] + widen], dim=1) for ge in g]
+        + [metas]
+        + [ge[:, 6:15] for ge in g],
+        dim=1,
+    )  # (cap4, 64): boxes 0-23, metas 24-27, verts 28-63
+
+
+@torch.no_grad()
+def pack_tables4(
+    scene: Scene, bvh: Bvh, cap4: int | None = None, mask=None, new_id=None
+) -> torch.Tensor:
+    """Flatten scene+BVH into the 4-child record table (see module doc).
+
+    Two-stage: a topology-only PLAN (_pack_plan4 — entry sources + metas,
+    cached per topology) applied to the current geometry (_apply_plan4 —
+    4 grouped gathers).  A refit-per-frame animation loop therefore repays
+    only the apply stage.
+
+    ``cap4`` is the record count (defaults to the worst-case (2·cap+1)/3
+    bound; `prepare_tables4` passes the actual even-depth node count)."""
+    cap = bvh.capacity
+    if cap4 is None:
+        cap4 = (2 * cap) // 3 + 2
+    if cap4 >= (1 << _IDX_BITS):
+        raise ValueError("meta packing needs node ids < 2^21")
+    if cap >= (1 << _IDX_BITS):
+        raise ValueError("meta packing needs triangle ids < 2^21")
+
+    if mask is None:
+        mask, new_id = bvh4_node_mask(bvh)
+    ent = _TOPO_CACHE.get(id(bvh.left))
+    if ent is not None and ent[0]() is bvh.left:
+        plan = ent[4].get(cap4)
+        if plan is None:
+            plan = ent[4][cap4] = _pack_plan4(bvh, mask, new_id, cap4)
+    else:
+        plan = _pack_plan4(bvh, mask, new_id, cap4)
+    return _apply_plan4(scene, bvh, *plan)
+
+
+def table_geometry(tables: torch.Tensor) -> int:
+    """Record count of a packed table (the port has one layout)."""
+    if tables.ndim != 2 or tables.shape[1] != _SLOTS4:
+        raise ValueError(f"not a (cap4, {_SLOTS4}) record table: {tuple(tables.shape)}")
+    return tables.shape[0]
+
+
+def prepare_tables4(scene: Scene, bvh: Bvh) -> torch.Tensor:
+    """BVH4 record table for (scene, bvh), cached per Bvh instance.
+
+    The table is sized to the scene's ACTUAL compacted even-depth node count
+    (one device→host read at pack time, at least 1), not the worst-case
+    (2n+1)/3 bound."""
+    key = id(bvh)
+    ent = _TABLE4_CACHE.get(key)
+    if ent is not None and ent[0]() is bvh and ent[1]() is scene:
+        return ent[2]
+    mask, new_id, cap4 = _node_mask_cached(bvh)
+    tables = pack_tables4(scene, bvh, cap4=max(cap4, 1), mask=mask, new_id=new_id)
+    bvh_ref = weakref.ref(bvh, lambda _r, _k=key: _TABLE4_CACHE.pop(_k, None))
+    _TABLE4_CACHE[key] = (bvh_ref, weakref.ref(scene), tables)
+    return tables
+
+
+# --------------------------------------------------------------------------
+# Traversal
+# --------------------------------------------------------------------------
+
+
+def _check_inputs(table, origins, dirs, t_init, anyhit_thresh):
+    """Raise on anything the kernel does not take (both versions share the
+    contract, so the CPU tests exercise the same checks)."""
+    table_geometry(table)
+    R = origins.shape[0]
+    if R == 0:
+        raise ValueError("empty ray batch")
+    named = [("table", table, table.shape), ("origins", origins, (R, 3)),
+             ("dirs", dirs, (R, 3))]
+    if t_init is not None:
+        named.append(("t_init", t_init, (R,)))
+    if anyhit_thresh is not None:
+        named.append(("anyhit_thresh", anyhit_thresh, (R,)))
+    for name, x, shape in named:
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.device != origins.device:
+            raise ValueError(f"{name} is on {x.device}, rays are on {origins.device}")
+
+
+def _load_kernel():
+    """The kernel's C entry point, built by nvcc on first use."""
+    lib = kernel_build.load_kernel_library(KERNEL_NAME)
+    fn = lib.trace_bvh4_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+@torch.no_grad()
+def traverse_bvh4(
+    table: torch.Tensor,
+    origins: torch.Tensor,
+    dirs: torch.Tensor,
+    t_init: torch.Tensor | None = None,
+    anyhit_thresh: torch.Tensor | None = None,
+    count_steps: bool = False,
+):
+    """BVH4 nearest-hit traversal over (R, 3) rays (see module doc).
+
+    ``table`` is a `prepare_tables4` result.  ``t_init`` (R,) seeds the
+    running best; ``anyhit_thresh`` (R,), where positive, retires a ray at
+    its first accepted hit below the threshold with t collapsed to 0 (the
+    occlusion boolean ``hit & (t < thresh)`` is what is specified).
+    Returns a HitRecord, or ``(HitRecord, steps)`` with ``count_steps`` —
+    steps (R,) int32 counts the records each ray popped.
+
+    On CUDA tensors this launches the hand-written kernel on the current
+    stream without synchronising, or raises; it never gives way to the plain
+    version.  On CPU tensors it runs `traverse_bvh4_plain`.
+    ``traverse_bvh4.launches`` counts kernel launches.
+    """
+    _check_inputs(table, origins, dirs, t_init, anyhit_thresh)
+    if origins.device.type == "cpu":
+        return traverse_bvh4_plain(
+            table, origins, dirs, t_init, anyhit_thresh, count_steps
+        )
+    if origins.device.type != "cuda":
+        raise ValueError(f"unsupported device {origins.device}")
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned")
+    launch = _load_kernel()
+    R = origins.shape[0]
+    dev = origins.device
+    out_t = torch.empty((R,), dtype=torch.float32, device=dev)
+    out_tri = torch.empty((R,), dtype=torch.int32, device=dev)
+    out_u = torch.empty((R,), dtype=torch.float32, device=dev)
+    out_v = torch.empty((R,), dtype=torch.float32, device=dev)
+    steps = torch.empty((R,), dtype=torch.int32, device=dev) if count_steps else None
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = launch(
+            ptr(table), ptr(origins), ptr(dirs), ptr(t_init), ptr(anyhit_thresh),
+            ptr(out_t), ptr(out_tri), ptr(out_u), ptr(out_v), ptr(steps),
+            R, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"trace_bvh4 kernel launch failed: CUDA error {err}")
+    traverse_bvh4.launches += 1
+    hits = HitRecord(t=out_t, tri=out_tri, u=out_u, v=out_v)
+    return (hits, steps) if count_steps else hits
+
+
+traverse_bvh4.launches = 0
+
+# The plain version checks its stacks and compacts its working set every
+# this many steps (each check is one device→host read).
+_PLAIN_CHECK_EVERY = 8
+
+
+def _plain_step(table, o, d, inv, thr, t, tri, u, v, stack, sp, steps, work):
+    """One pop for every still-active ray of the working set; in place on
+    ``stack``, returns the updated per-ray state.  Same operations in the
+    same order as one iteration of the CUDA kernel's loop."""
+    active = sp > 0
+    spm1 = torch.clamp(sp - 1, min=0)
+    k = torch.gather(stack, 1, spm1[:, None])[:, 0].to(torch.int64)
+    k = torch.where(active, k, 0)
+    rec = table[k]  # (A, 64)
+    steps = steps + active
+
+    # Four slab tests against the running t as it was at the pop.
+    box = rec[:, 0:24].reshape(-1, 4, 6)
+    t1 = (box[:, :, 0:3] - o[:, None, :]) * inv[:, None, :]
+    t2 = (box[:, :, 3:6] - o[:, None, :]) * inv[:, None, :]
+    lo = torch.fmin(t1, t2)
+    hi = torch.fmax(t1, t2)
+    tmin = torch.fmax(lo[..., 0], torch.fmax(lo[..., 1], lo[..., 2]))
+    tmax = torch.fmin(hi[..., 0], torch.fmin(hi[..., 1], hi[..., 2]))
+    hit = (tmax > tmin) & (tmax > 0) & (tmin < t[:, None]) & active[:, None]
+
+    m = rec[:, 24:28].to(torch.int32)  # exact: metas are integers < 2^24
+    idx = m & _IDX_MASK
+    leaf = ((m >> _IDX_BITS) & 1) == 1
+    axis = m >> (_IDX_BITS + 1)
+
+    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    for e in range(4):
+        vt = rec[:, 28 + 9 * e: 37 + 9 * e]
+        ax, ay, az = vt[:, 0], vt[:, 1], vt[:, 2]
+        e1x, e1y, e1z = vt[:, 3], vt[:, 4], vt[:, 5]
+        e2x, e2y, e2z = vt[:, 6], vt[:, 7], vt[:, 8]
+        px = dy * e2z - dz * e2y
+        py = dz * e2x - dx * e2z
+        pz = dx * e2y - dy * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        inv_det = 1.0 / det
+        tvx, tvy, tvz = ox - ax, oy - ay, oz - az
+        uu = (tvx * px + tvy * py + tvz * pz) * inv_det
+        qx = tvy * e1z - tvz * e1y
+        qy = tvz * e1x - tvx * e1z
+        qz = tvx * e1y - tvy * e1x
+        vv = (dx * qx + dy * qy + dz * qz) * inv_det
+        tn = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+        reject = (
+            ((det < 1e-8) & (det > -1e-8))
+            | ((uu < 0) | (uu > 1))
+            | ((vv < 0) | (uu + vv > 1))
+        )
+        accept = hit[:, e] & leaf[:, e] & ~reject & (tn < t)
+        t = torch.where(accept, tn, t)
+        tri = torch.where(accept, idx[:, e], tri)
+        u = torch.where(accept, uu, u)
+        v = torch.where(accept, vv, v)
+
+    if work is not None:
+        work["visited"][k[active]] = True
+        work["leaf_tests"] += (hit & leaf).sum()
+
+    # Any-hit: retire at the first accepted hit below a positive threshold.
+    collapsed = active & (thr > 0) & (t < thr)
+    t = torch.where(collapsed, 0.0, t)
+
+    # Push internal entries far-to-near by this ray's own direction signs.
+    def near(ax):
+        return torch.where(ax == 0, dx > 0, torch.where(ax == 1, dy > 0, dz > 0))
+
+    push = hit & ~leaf
+    n_pair, n_l, n_r = near(axis[:, 0]), near(axis[:, 1]), near(axis[:, 2])
+
+    def ordered(a, b, first_is_a):
+        return (
+            torch.where(first_is_a, idx[:, a], idx[:, b]),
+            torch.where(first_is_a, push[:, a], push[:, b]),
+            torch.where(first_is_a, idx[:, b], idx[:, a]),
+            torch.where(first_is_a, push[:, b], push[:, a]),
+        )
+
+    l0i, l0p, l1i, l1p = ordered(0, 1, n_l)
+    r0i, r0p, r1i, r1p = ordered(2, 3, n_r)
+    s0 = (torch.where(n_pair, l0i, r0i), torch.where(n_pair, l0p, r0p))
+    s1 = (torch.where(n_pair, l1i, r1i), torch.where(n_pair, l1p, r1p))
+    s2 = (torch.where(n_pair, r0i, l0i), torch.where(n_pair, r0p, l0p))
+    s3 = (torch.where(n_pair, r1i, l1i), torch.where(n_pair, r1p, l1p))
+    new_sp = spm1
+    for ii, pp in (s3, s2, s1, s0):
+        rows = pp.nonzero(as_tuple=True)[0]
+        stack[rows, new_sp[rows]] = ii[rows]
+        new_sp = new_sp + pp
+    sp = torch.where(active, new_sp, sp)
+    sp = torch.where(collapsed, 0, sp)
+    return t, tri, u, v, sp, steps
+
+
+@torch.no_grad()
+def traverse_bvh4_plain(
+    table: torch.Tensor,
+    origins: torch.Tensor,
+    dirs: torch.Tensor,
+    t_init: torch.Tensor | None = None,
+    anyhit_thresh: torch.Tensor | None = None,
+    count_steps: bool = False,
+    work: dict | None = None,
+):
+    """Plain PyTorch version of `traverse_bvh4` (same signature, any device):
+    a lock-step batched per-ray DFS over the same table — per-ray stack rows,
+    one pop per still-active ray per step, masked updates — with the kernel's
+    per-ray near/far order and arithmetic order.  Rays that have finished are
+    dropped from the working set from time to time, so late steps cost only
+    the rays still walking.
+
+    ``work`` (this version only): a dict that receives what the walk needed —
+    ``records_visited`` (distinct records popped by any ray) and
+    ``leaf_tests`` (triangle tests run) — the data-dependent terms of the
+    kernel's roofline bound.  The kernel walks the same records."""
+    _check_inputs(table, origins, dirs, t_init, anyhit_thresh)
+    if work is not None:
+        work["visited"] = torch.zeros(table.shape[0], dtype=torch.bool, device=table.device)
+        work["leaf_tests"] = torch.zeros((), dtype=torch.int64, device=table.device)
+    R = origins.shape[0]
+    dev = origins.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    out_t = torch.full((R,), C.MAX_FLOAT, **f32) if t_init is None else t_init.clone()
+    out_tri = torch.zeros((R,), dtype=torch.int32, device=dev)
+    out_u = torch.zeros((R,), **f32)
+    out_v = torch.zeros((R,), **f32)
+    out_steps = torch.zeros((R,), dtype=torch.int32, device=dev)
+
+    # Working set: the rays still walking (all of them at first).
+    ray = torch.arange(R, device=dev)
+    o, d = origins, dirs
+    inv = 1.0 / dirs
+    thr = torch.zeros((R,), **f32) if anyhit_thresh is None else anyhit_thresh
+    t, tri, u, v, steps = out_t, out_tri, out_u, out_v, out_steps
+    # Slack columns: overflow past the kernel's 64 entries is detected at the
+    # next check instead of indexing out of range.
+    depth = C.TRAVERSAL_STACK_DEPTH
+    stack = torch.zeros((R, depth + 4 * _PLAIN_CHECK_EVERY), dtype=torch.int32, device=dev)
+    sp = torch.ones((R,), dtype=torch.int64, device=dev)
+
+    it = 0
+    while True:
+        if it % _PLAIN_CHECK_EVERY == 0:
+            active = sp > 0
+            n_active = int(active.sum())
+            if int(sp.max()) > depth:
+                raise RuntimeError("traversal stack overflow (tree too deep)")
+            if n_active <= ray.shape[0] // 2:
+                out_t[ray], out_tri[ray], out_u[ray], out_v[ray] = t, tri, u, v
+                out_steps[ray] = steps
+                if n_active == 0:
+                    break
+                keep = active.nonzero(as_tuple=True)[0]
+                ray, o, d, inv, thr = ray[keep], o[keep], d[keep], inv[keep], thr[keep]
+                t, tri, u, v, steps = t[keep], tri[keep], u[keep], v[keep], steps[keep]
+                stack, sp = stack[keep], sp[keep]
+        t, tri, u, v, sp, steps = _plain_step(
+            table, o, d, inv, thr, t, tri, u, v, stack, sp, steps, work
+        )
+        it += 1
+    if work is not None:
+        work["records_visited"] = int(work.pop("visited").sum())
+        work["leaf_tests"] = int(work["leaf_tests"])
+
+    hits = HitRecord(t=out_t, tri=out_tri, u=out_u, v=out_v)
+    return (hits, out_steps) if count_steps else hits

@@ -1,0 +1,99 @@
+"""End-to-end BVH build: sort → uniquify → topology → refit.
+
+The reference performs this once in ``Awake`` as a sequence of host-driven
+GPU dispatches with CPU round-trips between stages
+(``RaytracingMeshDrawer.cs:30-55``).  Here the stages are eager tensor code on
+the scene's device and nothing returns to the host.  The sort carries the
+triangle indices exactly like the reference's (key, value) pair sort;
+``distribute_keys`` then replaces the reference's GPU→CPU→GPU uniquification
+round-trip (MeshBufferContainer.cs:154-169).
+"""
+from __future__ import annotations
+
+import torch
+
+from unitysimpleraytracing_tpu_torch import constants as C
+from unitysimpleraytracing_tpu_torch.core.types import Bvh, Scene
+from unitysimpleraytracing_tpu_torch.ops import lbvh, sort, unique
+
+
+@torch.no_grad()
+def build_bvh(
+    scene: Scene,
+    diagnostics: bool = False,
+    validate: bool = False,
+    builder: str | None = None,
+) -> Bvh:
+    """Construct the BVH for a scene. Requires scene.count >= 2.
+
+    ``builder``: only "karras" (the reference's radix tree,
+    BVH.compute:94-149, the bit-parity surface) is ported.  The JAX
+    package's default for concrete builds is "sah_free"; ``None``, "sah" and
+    "sah_free" therefore raise ``NotImplementedError`` rather than silently
+    build a different tree than that default would (ROADMAP queue 1 item 8).
+
+    ``diagnostics`` adds the parent links + per-node depth array
+    (validation only; nothing in the render path reads them).
+
+    ``validate=True`` (the runtime validators) is not ported yet and raises
+    (ROADMAP queue 1 item 11).
+    """
+    if scene.count < 2:
+        raise ValueError("LBVH needs at least 2 triangles (reference assumes the same)")
+    if builder != "karras":
+        raise NotImplementedError(
+            f"build_bvh(builder={builder!r}): only builder='karras' is ported; "
+            "the SAH builders (the JAX default for concrete builds is "
+            "'sah_free') are ROADMAP queue 1 item 8"
+        )
+    if validate:
+        raise NotImplementedError(
+            "build_bvh(validate=True): the validators are ROADMAP queue 1 item 11"
+        )
+    keys, sorted_tri = sort.sort_key_val(scene.morton, scene.tri_index)
+    keys = unique.distribute_keys(keys, scene.count)
+    return lbvh.build_bvh_from_sorted(
+        keys, sorted_tri, scene.aabb_min, scene.aabb_max, scene.count,
+        diagnostics=diagnostics,
+    )
+
+
+@torch.no_grad()
+def deform_scene(scene: Scene, positions: torch.Tensor) -> Scene:
+    """Replace vertex positions (T, 3, 3), keeping topology-related fields.
+
+    For per-frame vertex animation: per-triangle AABBs are recomputed (the
+    refit inputs), while Morton codes and the sorted order are intentionally
+    left stale — `refit_bvh` stays correct under any deformation (every node
+    box still bounds its subtree), the tree merely loses quality as geometry
+    drifts from its original Morton order; re-run `build_bvh` to re-optimize.
+    """
+    a, b, c = positions[:, 0], positions[:, 1], positions[:, 2]
+    amin = torch.minimum(torch.minimum(a, b), c) - C.AABB_INFLATION
+    amax = torch.maximum(torch.maximum(a, b), c) + C.AABB_INFLATION
+    tris = scene.triangles.replace(
+        a=a.contiguous(), b=b.contiguous(), c=c.contiguous()
+    )
+    return scene.replace(triangles=tris, aabb_min=amin, aabb_max=amax)
+
+
+@torch.no_grad()
+def refit_bvh(scene: Scene, bvh: Bvh) -> Bvh:
+    """Refit node AABBs to the scene's current triangle AABBs, keeping the
+    tree topology (the fast path for deforming meshes — the reference has no
+    equivalent: it rebuilds everything each Awake).
+
+    Exact: output equals a fresh refit of the same topology over the new leaf
+    boxes.  ``replace`` keeps the topology tensors' object identity, which the
+    BVH4 table packer's per-topology cache keys on — a refit-per-frame render
+    loop skips the depth chase when repacking (ops/trace_bvh4).
+    """
+    node_min, node_max = lbvh.refit(
+        bvh.range_first,
+        bvh.range_last,
+        bvh.sorted_tri,
+        scene.aabb_min,
+        scene.aabb_max,
+        bvh.count,
+    )
+    return bvh.replace(node_aabb_min=node_min, node_aabb_max=node_max)
