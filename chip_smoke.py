@@ -3,14 +3,21 @@
 
     python3 chip_smoke.py [--out DIR] [--profile]
 
-Drives the port's main path — a static-scene frame: procedural mesh →
-``build_scene`` → ``build_bvh`` → BVH4 record table → CUDA traversal kernel →
-shade → compose → PNG — through the public entry points, at the sizes the
-repo calls real (260,642 triangles at 1920x1056 with shadow rays; 1,048,352
-triangles as one tree).  It builds the hand-written kernel from the sources in
-this checkout, holds it against its plain PyTorch version on the card, shows
-by launch counts that the main path went through the kernel, checks frames
-against the golden images, and times every stage with CUDA events.
+Drives the port's main paths through the public entry points, at the sizes
+the repo calls real (260,642 triangles at 1920x1056 with shadow rays;
+1,048,352 triangles as one tree):
+
+- the static-scene frame: procedural mesh → ``build_scene`` → ``build_bvh`` →
+  BVH4 record table → CUDA traversal kernel → shade → compose → PNG;
+- the build's radix-sort path: ``build_bvh(sort_impl="cuda")`` (digit
+  histogram, exclusive scan and stable rank kernels, four passes) and
+  ``build_bvh(validate=True)`` (every validator, every digit pass of both
+  decomposed sort engines).
+
+It builds the hand-written kernels from the sources in this checkout, holds
+each against its plain PyTorch version on the card, shows by launch counts
+that each path went through its kernels, checks frames against the golden
+images, and times every stage with CUDA events.
 
 ``--out DIR`` is where the rendered PNG goes (default ``build/chip_smoke``
 under this checkout).  ``--profile`` adds a ``torch.profiler`` pass over three frames of the
@@ -169,6 +176,315 @@ def roofline_ms(n_rays, has_t_init, has_thresh, records_visited, pops, leaf_test
     }
 
 
+def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest absolute difference of two tensors of one shape and dtype."""
+    assert got.shape == want.shape and got.dtype == want.dtype, (got.shape, want.shape)
+    return float((got.double() - want.double()).abs().max())
+
+
+def bvh_bits_equal(parity, got, want, what: str) -> int:
+    """Every array of two Bvh containers bit for bit; returns the array count."""
+    import dataclasses
+
+    arrays = 0
+    for f in dataclasses.fields(got):
+        g, w = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(g, torch.Tensor):
+            parity.assert_bits_equal(g.cpu().numpy(), w.cpu().numpy(), f"{what}: {f.name}")
+            arrays += 1
+        else:
+            assert g == w, (what, f.name)
+    return arrays
+
+
+def run_sort_slice(rt, timer, smi, main_image, tex, bg, W, H):
+    """The build's radix-sort path: kernels K3 (digit histogram), K4 (stable
+    rank) and K5 (exclusive scan) against their plain versions, then
+    ``build_bvh(sort_impl="cuda")`` and ``build_bvh(validate=True)`` at full
+    size.  Emits the phases ``sort_kernels_vs_plain`` and ``sort_path`` and
+    returns the three entries of the ``kernels`` line."""
+    from unitysimpleraytracing_tpu_torch import constants as C
+    from unitysimpleraytracing_tpu_torch.ops import scan, sort, sort_radix_cuda
+    from unitysimpleraytracing_tpu_torch.utils import parity, validate
+
+    K3, K4, K5 = sort_radix_cuda.digit_histogram, sort_radix_cuda.digit_rank, scan.exclusive_scan
+    BLOCK = sort_radix_cuda.BLOCK
+    shifts = [p * C.RADIX_BITS for p in range(C.NUM_PASSES)]
+    rng = np.random.default_rng(2)
+
+    scene_260k = rt.build_scene(rt.terrain_mesh(res=362, size=160.0, amplitude=20.0, seed=1))
+    scene_1m = rt.build_scene(rt.terrain_mesh(res=725, size=300.0, amplitude=30.0, seed=0))
+    assert scene_260k.count == 260642 and scene_1m.count == 1048352
+    assert scene_1m.capacity == 1 << 20
+
+    def dev_keys(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int64)).cuda()
+
+    # ---- sort_kernels_vs_plain ------------------------------------------
+    err = {"digit_histogram": 0.0, "digit_rank": 0.0, "exclusive_scan": 0.0}
+    cases = []
+    block_cases = [
+        ("morton keys of the 260,642-triangle scene (capacity 261,120)", scene_260k.morton),
+        ("morton keys of the 1,048,352-triangle scene (capacity 1,048,576)", scene_1m.morton),
+        ("2^20 random 32-bit keys",
+         dev_keys(rng.integers(0, 2**32, size=1 << 20, dtype=np.uint64))),
+        ("65,536 equal keys", dev_keys(np.full(1 << 16, 0x2AAAAAAA))),
+        ("65,536 padding keys", dev_keys(np.full(1 << 16, C.KEY_PADDING))),
+    ]
+    for name, keys in block_cases:
+        n = keys.shape[0]
+        values = torch.arange(n, dtype=torch.int32, device="cuda")
+        k, v = keys, values
+        for shift in shifts:
+            hist_t = K3(k, shift)
+            scanned = K5(hist_t)
+            dst = K4(k, scanned, shift)
+            torch.cuda.synchronize()
+            for kernel, got, want in (
+                ("digit_histogram", hist_t, sort_radix_cuda.digit_histogram_plain(k, shift)),
+                ("exclusive_scan", scanned, scan.exclusive_scan_plain(hist_t)),
+                ("digit_rank", dst, sort_radix_cuda.digit_rank_plain(k, scanned, shift)),
+            ):
+                assert torch.equal(got, want), f"{kernel} differs from its plain version: {name}, shift {shift}"
+                err[kernel] = max(err[kernel], max_abs_diff(got, want))
+            k, v = sort.scatter_pass(k, v, dst)
+        want_k, perm = torch.sort(keys, stable=True)
+        assert torch.equal(k, want_k) and torch.equal(v, values[perm]), name
+        if "equal" in name or "padding" in name:
+            assert torch.equal(v, values), "equal keys must keep their order"
+        cases.append({"case": name, "keys": n, "blocks": n // BLOCK, "passes": len(shifts),
+                      "bit_identical": True})
+    for n in (1, 1023, 1025, 5000):
+        keys = dev_keys(rng.integers(0, 2**32, size=n, dtype=np.uint64))
+        values = torch.arange(n, dtype=torch.int32, device="cuda")
+        gk, gv = sort.sort_key_val(keys, values, impl="cuda")
+        wk, wv = sort.sort_key_val(keys, values, impl="torch")
+        assert torch.equal(gk, wk) and torch.equal(gv, wv), f"ragged n={n}"
+        cases.append({"case": f"ragged n={n} through sort_key_val(impl='cuda')",
+                      "keys": n, "bit_identical": True})
+    # The scan alone: the histogram's shape, two levels of totals, int64, float32.
+    scan_cases = []
+    for name, x in (
+        ("256 x 1024 histogram shape, int32",
+         torch.from_numpy(rng.integers(0, 1025, size=256 * 1024).astype(np.int32)).cuda()),
+        ("2^20 + 12,345 elements (two levels of totals), int32",
+         torch.from_numpy(rng.integers(0, 9, size=(1 << 20) + 12345).astype(np.int32)).cuda()),
+        ("2^22 elements, int64, totals beyond 2^32",
+         torch.from_numpy(rng.integers(0, 1 << 40, size=1 << 22)).cuda()),
+    ):
+        before = K5.device_launches
+        got = K5(x)
+        levels = K5.device_launches - before
+        want = scan.exclusive_scan_plain(x)
+        assert torch.equal(got, want), name
+        err["exclusive_scan"] = max(err["exclusive_scan"], max_abs_diff(got, want))
+        scan_cases.append({"case": name, "elements": int(x.shape[0]),
+                           "device_launches": levels, "bit_identical": True})
+    assert [c["device_launches"] for c in scan_cases] == [3, 5, 5]
+    xf = rng.normal(size=(1 << 20) + 77).astype(np.float32)
+    got = K5(torch.from_numpy(xf).cuda()).cpu().numpy().astype(np.float64)
+    want = scan.exclusive_scan_reference(xf.astype(np.float64))
+    sum_abs = np.maximum(scan.exclusive_scan_reference(np.abs(xf).astype(np.float64)), 1.0)
+    float_err = float(np.max(np.abs(got - want) / sum_abs))
+    assert float_err <= 1e-5, f"float32 scan off by {float_err} of the running sum"
+    plain_f = scan.exclusive_scan_plain(torch.from_numpy(xf).cuda()).cpu().numpy()
+    float_err_plain = float(np.max(np.abs(got - plain_f) / sum_abs))
+    assert float_err_plain <= 1e-5
+    scan_cases.append({"case": "2^20 + 77 normal float32", "elements": int(xf.shape[0]),
+                       "max_err_over_running_sum_of_magnitudes_vs_float64": float_err,
+                       "same_vs_plain_cumsum": float_err_plain})
+
+    # Times at the 1 M-key shape (the 1,048,352-triangle scene's keys, first
+    # pass), CUDA events, median of 5 after a warm-up, cold L2.
+    keys = scene_1m.morton
+    values = scene_1m.tri_index
+    n = keys.shape[0]
+    nblocks = n // BLOCK
+    hist_t = K3(keys, 0)
+    scanned = K5(hist_t)
+    dst = K4(keys, scanned, 0)
+    block_ids = torch.arange(nblocks, device="cuda").repeat_interleave(BLOCK)
+
+    def cold(fn, iters=5):
+        return timer.median_ms(fn, iters=iters, cold=True)
+
+    def library_histogram():
+        return torch.bincount(block_ids * C.NUM_BUCKETS + (keys & 255),
+                              minlength=nblocks * C.NUM_BUCKETS)
+
+    assert torch.equal(library_histogram().reshape(nblocks, C.NUM_BUCKETS).t().reshape(-1).int(),
+                       hist_t)
+    shifted = torch.cumsum(hist_t, 0, dtype=torch.int32)
+    assert torch.equal(shifted[:-1], scanned[1:])
+    bytes_k3 = n * 8 + nblocks * 1024
+    bytes_k5 = 2 * 4 * hist_t.shape[0]
+    bytes_k4 = n * 8 + nblocks * 1024 + n * 4
+    times = {
+        "digit_histogram": {
+            "ms": cold(lambda: K3(keys, 0)),
+            "plain_ms": cold(lambda: sort_radix_cuda.digit_histogram_plain(keys, 0)),
+            "library_ms": cold(library_histogram),
+            "library": "torch.bincount(block * 256 + (keys & 255), minlength=256 * nblocks), "
+                       "index arithmetic included, block-major result",
+            "min_bytes": bytes_k3,
+        },
+        "exclusive_scan": {
+            "ms": cold(lambda: K5(hist_t)),
+            "plain_ms": cold(lambda: scan.exclusive_scan_plain(hist_t)),
+            "library_ms": cold(lambda: torch.cumsum(hist_t, 0, dtype=torch.int32)),
+            "library": "torch.cumsum(hist_t, 0, dtype=torch.int32) (inclusive; no shift)",
+            "min_bytes": bytes_k5,
+        },
+        "digit_rank": {
+            "ms": cold(lambda: K4(keys, scanned, 0)),
+            "plain_ms": cold(lambda: sort_radix_cuda.digit_rank_plain(keys, scanned, 0), iters=3),
+            "library_ms": None,
+            "library": "none: no single PyTorch call gives a stable per-block rank",
+            "min_bytes": bytes_k4,
+        },
+    }
+    for t in times.values():
+        # One add or compare per element against 8 bytes and more: bytes bound.
+        t["bound_ms"] = t["min_bytes"] / PEAK_BYTES_PER_S * 1e3
+        t["bound_by"] = "bytes"
+    scatter_ms = cold(lambda: sort.scatter_pass(keys, values, dst))
+    pass_ms = cold(lambda: sort_radix_cuda._sort_pass(keys, values, 0))
+
+    def torch_sort():
+        return sort.sort_key_val(keys, values, impl="torch")
+
+    def cuda_sort():
+        return sort.sort_key_val(keys, values, impl="cuda")
+
+    sort_1m = {"torch": [], "cuda": []}
+    for which in ("torch", "cuda", "cuda", "torch"):
+        sort_1m[which].append(cold(torch_sort if which == "torch" else cuda_sort))
+    emit("sort_kernels_vs_plain",
+         tolerance="bit-identical for int32/int64; float32 scan within 1e-5 of the running "
+                   "sum of magnitudes (tree summation order)",
+         cases=cases, scan_cases=scan_cases, max_abs_err=err,
+         times_at_1m_keys={"keys": n, "blocks": nblocks, "histogram_elements": int(hist_t.shape[0]),
+                           "kernels": times, "scatter_ms": scatter_ms, "one_pass_ms": pass_ms,
+                           "sum_of_parts_ms": times["digit_histogram"]["ms"]
+                           + times["exclusive_scan"]["ms"] + times["digit_rank"]["ms"] + scatter_ms,
+                           "four_pass_sort_ms_in_turns": sort_1m},
+         timing="CUDA events, median of 5 after a warm-up, 256 MB written before each sample",
+         nvidia_smi=smi)
+    del block_ids, shifted
+
+    # ---- sort_path ---------------------------------------------------------
+    # The slice's main path, counts set to 0 just before and read just after.
+    K3.launches = K4.launches = K5.launches = K5.device_launches = 0
+    bvh_cuda = rt.build_bvh(scene_260k, sort_impl="cuda", builder="karras")
+    torch.cuda.synchronize()
+    after_build = (K3.launches, K4.launches, K5.launches, K5.device_launches)
+    assert after_build == (4, 4, 4, 12), f"one 'cuda' sort launched {after_build}"
+    cam = rt.make_camera(eye=(110.0, 90.0, 140.0), target=(0.0, 0.0, 0.0), width=W, height=H)
+    frame = rt.render_frame(scene_260k, bvh_cuda, cam, tex, bg, shadows=True)
+    image_cuda = rt.frame_to_image(frame)
+    t0 = time.perf_counter()
+    bvh_validated = rt.build_bvh(scene_260k, builder="karras", validate=True)
+    torch.cuda.synchronize()
+    validate_s = time.perf_counter() - t0
+    path_launches = {"digit_histogram": K3.launches, "digit_rank": K4.launches,
+                     "exclusive_scan": K5.launches,
+                     "exclusive_scan_device_launches": K5.device_launches}
+    assert path_launches == {"digit_histogram": 8, "digit_rank": 8, "exclusive_scan": 8,
+                             "exclusive_scan_device_launches": 24}, path_launches
+
+    assert image_cuda.tobytes() == main_image.tobytes(), \
+        "the frame from the sort_impl='cuda' tree differs from the main path's frame"
+    bvh_torch = rt.build_bvh(scene_260k, sort_impl="torch", builder="karras")
+    arrays = bvh_bits_equal(parity, bvh_cuda, bvh_torch, "260,642 triangles, cuda vs torch")
+    bvh_bits_equal(parity, bvh_validated,
+                   rt.build_bvh(scene_260k, builder="karras", diagnostics=True),
+                   "validate=True vs diagnostics=True")
+    bvh_bits_equal(parity, rt.build_bvh(scene_260k, sort_impl="radix", builder="karras"),
+                   bvh_torch, "260,642 triangles, radix vs torch")
+    bvh_bits_equal(parity, rt.build_bvh(scene_1m, sort_impl="cuda", builder="karras"),
+                   rt.build_bvh(scene_1m, sort_impl="torch", builder="karras"),
+                   "1,048,352 triangles, cuda vs torch")
+
+    # A deliberately corrupted pass must not get past the validators.
+    ko, vo, hist_t, scanned = sort_radix_cuda.cuda_pass_debug(
+        scene_260k.morton, scene_260k.tri_index, 0)
+    validate.validate_sort_pass(scene_260k.morton, scene_260k.tri_index, ko, vo, hist_t,
+                                scanned, 0, BLOCK)
+    bad = ko.clone()
+    bad[[3, 200000]] = ko[[200000, 3]]
+    assert int(bad[3]) != int(ko[3])
+    try:
+        validate.validate_sort_pass(scene_260k.morton, scene_260k.tri_index, bad, vo, hist_t,
+                                    scanned, 0, BLOCK)
+    except AssertionError as e:
+        corrupted = str(e)
+    else:
+        raise AssertionError("validate_sort_pass accepted a pass with two keys swapped")
+
+    # 2^22 random keys: the stable permutation is unique.
+    big = dev_keys(rng.integers(0, 2**32, size=1 << 22, dtype=np.uint64))
+    big_v = torch.arange(1 << 22, dtype=torch.int32, device="cuda")
+    gk, gv = sort_radix_cuda.radix_sort_key_val_cuda(big, big_v)
+    wk, perm = torch.sort(big, stable=True)
+    assert torch.equal(gk, wk) and torch.equal(gv, big_v[perm])
+    sort_4m = {"torch": [], "cuda": []}
+    for which in ("torch", "cuda", "cuda", "torch"):
+        sort_4m[which].append(cold(
+            (lambda: sort.sort_key_val(big, big_v, impl="torch")) if which == "torch"
+            else (lambda: sort.sort_key_val(big, big_v, impl="cuda"))))
+    del big, big_v, gk, gv, wk, perm
+
+    builds = {}
+    for label, scene, iters in (("260642", scene_260k, 5), ("1048352", scene_1m, 3)):
+        builds[label] = {"torch": [], "cuda": []}
+        for which in ("torch", "cuda", "cuda", "torch"):
+            builds[label][which].append(timer.median_ms(
+                lambda: rt.build_bvh(scene, sort_impl=which, builder="karras"), iters=iters))
+        builds[label]["sort_only"] = {
+            which: timer.median_ms(
+                lambda: sort.sort_key_val(scene.morton, scene.tri_index, impl=which))
+            for which in ("torch", "cuda", "radix")}
+    emit("sort_path", triangles=[260642, 1048352], bvh_arrays_bit_identical=arrays,
+         launches_of_one_cuda_sort={"digit_histogram": after_build[0],
+                                    "digit_rank": after_build[1],
+                                    "exclusive_scan": after_build[2],
+                                    "exclusive_scan_device_launches": after_build[3]},
+         launches_on_the_path=path_launches,
+         frame_from_cuda_tree_equals_main_path_frame=True,
+         validate_true_seconds_260k=validate_s, corrupted_pass_raised=corrupted,
+         sort_4m_keys_identical_to_stable_torch_sort=True,
+         sort_4m_keys_ms_in_turns=sort_4m, build_ms_in_turns=builds,
+         timing="CUDA events, median of 5 (3 at 1,048,352) after a warm-up; sorts cold L2",
+         nvidia_smi=smi)
+
+    sources = {
+        "digit_histogram": ("unitysimpleraytracing_tpu_torch/csrc/radix_sort.cu",
+                            "unitysimpleraytracing_tpu/ops/sort_pallas.py:60",
+                            "ops/sort_pallas.py::_hist_kernel",
+                            f"{n} int64 keys in {nblocks} blocks -> ({256 * nblocks},) int32"),
+        "digit_rank": ("unitysimpleraytracing_tpu_torch/csrc/radix_sort.cu",
+                       "unitysimpleraytracing_tpu/ops/sort_pallas.py:68",
+                       "ops/sort_pallas.py::_rank_kernel",
+                       f"{n} int64 keys, ({256 * nblocks},) int32 bases -> ({n},) int32"),
+        "exclusive_scan": ("unitysimpleraytracing_tpu_torch/csrc/scan.cu",
+                           "unitysimpleraytracing_tpu/ops/scan_pallas.py:36",
+                           "ops/scan_pallas.py::_kernel",
+                           f"({256 * nblocks},) int32, 3 device launches a call"),
+    }
+    entries = []
+    for name in ("digit_histogram", "digit_rank", "exclusive_scan"):
+        source, replaces, function, shape = sources[name]
+        t = times[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "replaces_function": function, "launches": path_launches[name],
+            "max_abs_err": err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": shape,
+        })
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(HERE, "build", "chip_smoke"),
@@ -186,7 +502,7 @@ def main() -> int:
     from unitysimpleraytracing_tpu_torch.core.camera import generate_rays
     from unitysimpleraytracing_tpu_torch.io.png import read_png, write_png
     from unitysimpleraytracing_tpu_torch.ops import (
-        dispatch, lbvh, sort, trace, trace_bvh4, unique,
+        dispatch, lbvh, scan, sort, sort_radix_cuda, trace, trace_bvh4, unique,
     )
     from unitysimpleraytracing_tpu_torch.pipeline import render
     from unitysimpleraytracing_tpu_torch.utils import kernel_build, parity
@@ -207,15 +523,20 @@ def main() -> int:
 
     # ---- 2. build_kernels ------------------------------------------------
     t0 = time.perf_counter()
-    started = {name: kernel_build.start_build(name) for name in (trace_bvh4.KERNEL_NAME,)}
+    kernel_names = (trace_bvh4.KERNEL_NAME, sort_radix_cuda.KERNEL_NAME, scan.KERNEL_NAME)
+    started = {name: kernel_build.start_build(name) for name in kernel_names}
     for name, st in started.items():
         kernel_build.finish_build(name, st)
     trace_bvh4._load_kernel()
-    report = [ln for ln in kernel_build.build_log(trace_bvh4.KERNEL_NAME).splitlines()
-              if "registers" in ln or "spill" in ln]
+    sort_radix_cuda._load_kernel()
+    scan._load_kernel()
     emit("build_kernels", seconds=time.perf_counter() - t0,
-         library=os.path.relpath(kernel_build.library_path(trace_bvh4.KERNEL_NAME), HERE),
-         ptxas=report)
+         libraries={n: os.path.relpath(kernel_build.library_path(n), HERE)
+                    for n in kernel_names},
+         ptxas={
+             n: [ln for ln in kernel_build.build_log(n).splitlines()
+                 if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+             for n in kernel_names})
 
     # ---- 3. kernel_vs_plain at the 65K-triangle / 512x512 shapes ---------
     cases = []
@@ -310,6 +631,7 @@ def main() -> int:
     tex = rt.solid_texture(tex_rgba)
     frame = rt.render_frame(scene, bvh, cam, tex, bg, shadows=True)
     image = rt.frame_to_image(frame)
+    main_image = image
     write_png(png_path, image)
     torch.cuda.synchronize()
     main_launches = trace_bvh4.traverse_bvh4.launches
@@ -514,7 +836,11 @@ def main() -> int:
     emit("golden", tolerance="more than 2/255 off on fewer than 0.2% of values",
          fraction_off=goldens)
 
-    # ---- 7. kernels ------------------------------------------------------
+    # ---- 7. the build's radix-sort path (kernels K3, K4, K5) -------------
+    del scene, bvh, cam, f
+    sort_entries = run_sort_slice(rt, timer, smi, main_image, tex, bg, W, H)
+
+    # ---- 8. kernels ------------------------------------------------------
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "trace_bvh4",
@@ -534,7 +860,7 @@ def main() -> int:
         "bound_ms_shadow": roof_s["bound_ms"],
         "library_ms": None,
         "shape": f"{n_rays} rays over a ({records_260k}, 64) float32 table",
-    }]}), flush=True)
+    }, *sort_entries]}), flush=True)
     emit("done", seconds=time.perf_counter() - t_script)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

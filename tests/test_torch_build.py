@@ -170,8 +170,10 @@ def test_unported_builders_raise(builder):
 
 def test_validate_and_tiny_scenes_raise():
     _, ps = both_scenes("cube")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.build_bvh(ps, builder="karras", validate=True)
+    # validate=True is ported: it returns the diagnostics build.
+    assert_fields_same_bits(
+        pt.build_bvh(ps, builder="karras", validate=True),
+        pt.build_bvh(ps, builder="karras", diagnostics=True))
     one = pt.build_scene(
         pt.MeshData(
             positions=pt.cube_mesh().positions[:1],

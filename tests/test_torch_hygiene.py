@@ -1,5 +1,5 @@
 """Hygiene of the PyTorch port: it imports none of JAX or the JAX package, it
-runs on the card unless asked for the CPU, and its kernel wrapper takes the
+runs on the card unless asked for the CPU, and its kernel wrappers take the
 plain version only because a tensor lies on the CPU."""
 import os
 import subprocess
@@ -10,11 +10,13 @@ import pytest
 import torch
 
 import unitysimpleraytracing_tpu_torch as pt
+from unitysimpleraytracing_tpu_torch.ops import scan as pscan
+from unitysimpleraytracing_tpu_torch.ops import sort as psort
+from unitysimpleraytracing_tpu_torch.ops import sort_radix_cuda as pcu
 from unitysimpleraytracing_tpu_torch.ops import trace_bvh4 as pt4
 from unitysimpleraytracing_tpu_torch.utils.device import resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -127,3 +129,68 @@ def test_kernel_source_and_build_recipe_are_in_the_package():
     path = kernel_build.library_path(pt4.KERNEL_NAME)
     assert os.path.dirname(path) == os.path.join(ROOT, "build")
     assert path == kernel_build.library_path(pt4.KERNEL_NAME)  # keyed by content
+
+
+def test_validator_default_device_is_the_card_and_raises_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device does not raise here")
+    from unitysimpleraytracing_tpu_torch.utils import validate
+
+    keys = np.arange(1024, dtype=np.uint32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        validate.validate_sort_per_pass(keys, np.arange(1024, dtype=np.int32))
+    validate.validate_sort_per_pass(keys, np.arange(1024, dtype=np.int32), device="cpu")
+
+
+@pytest.mark.parametrize("wrapper", ["digit_histogram", "digit_rank", "exclusive_scan",
+                                     "sort_key_val", "build_bvh"])
+def test_sort_wrappers_on_cpu_take_plain_versions_and_count_no_launch(wrapper):
+    rng = np.random.default_rng(0)
+    keys = torch.from_numpy(rng.integers(0, 2**32, size=4096, dtype=np.uint64).astype(np.int64))
+    vals = torch.arange(4096, dtype=torch.int32)
+    hist_t = pcu.digit_histogram_plain(keys, 8)
+    bases = pscan.exclusive_scan_plain(hist_t)
+    if wrapper == "digit_histogram":
+        assert torch.equal(pcu.digit_histogram(keys, 8), hist_t)
+    elif wrapper == "digit_rank":
+        assert torch.equal(pcu.digit_rank(keys, bases, 8), pcu.digit_rank_plain(keys, bases, 8))
+    elif wrapper == "exclusive_scan":
+        assert torch.equal(pscan.exclusive_scan(hist_t), bases)
+    elif wrapper == "sort_key_val":
+        got = psort.sort_key_val(keys, vals, impl="cuda")
+        want = psort.sort_key_val(keys, vals, impl="torch")
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        scene = pt.build_scene(pt.cube_mesh(size=2.0), device="cpu")
+        got = pt.build_bvh(scene, sort_impl="cuda", builder="karras")
+        assert torch.equal(got.sorted_tri, pt.build_bvh(scene, builder="karras").sorted_tri)
+    assert pcu.digit_histogram.launches == 0 and pcu.digit_rank.launches == 0
+    assert pscan.exclusive_scan.launches == 0 and pscan.exclusive_scan.device_launches == 0
+
+
+@pytest.mark.parametrize("name, entry_points", [
+    (pcu.KERNEL_NAME, ["digit_histogram_launch", "digit_rank_launch"]),
+    (pscan.KERNEL_NAME, ["scan_chunks_launch", "scan_add_bases_launch"]),
+])
+def test_sort_kernel_sources_and_build_recipe_are_in_the_package(name, entry_points):
+    from unitysimpleraytracing_tpu_torch.utils import kernel_build
+
+    text = open(os.path.join(kernel_build.CSRC_DIR, name + ".cu"), encoding="utf-8").read()
+    assert "__global__" in text and "cudaGetLastError" in text
+    for fn in entry_points:
+        assert f'extern "C" int {fn}' in text
+    for banned in ("cub::Device", "thrust::", "#include <torch", "#include <ATen"):
+        assert banned not in text
+    assert os.path.dirname(kernel_build.library_path(name)) == os.path.join(ROOT, "build")
+
+
+def test_port_calls_no_library_stand_in_for_a_kernel():
+    """The kernel modules' CUDA paths do not reach the PyTorch calls that
+    compute the same functions (they appear in the plain versions only)."""
+    import inspect
+
+    for fn in (pcu.digit_histogram, pcu.digit_rank, pscan.exclusive_scan, pscan._scan_on_card,
+               pcu._sort_pass):
+        src = inspect.getsource(fn)
+        for banned in ("bincount", "histc", "cumsum", "torch.sort", "argsort", "compile"):
+            assert banned not in src, (fn.__name__, banned)

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernel against its plain PyTorch version, on the
+"""The hand-written CUDA kernels against their plain PyTorch versions, on the
 card.  Imports nothing of JAX.  Run on a machine with an NVIDIA GPU:
 
     python -m pytest tests/test_torch_kernel_gpu.py -m gpu -n 0 --noconftest
@@ -10,7 +10,10 @@ import pytest
 import torch
 
 import unitysimpleraytracing_tpu_torch as pt
-from unitysimpleraytracing_tpu_torch.ops import dispatch, trace_bvh4
+from unitysimpleraytracing_tpu_torch import constants as C
+from unitysimpleraytracing_tpu_torch.ops import (
+    dispatch, scan, sort, sort_radix_cuda, trace_bvh4,
+)
 from unitysimpleraytracing_tpu_torch.utils.parity import assert_hit_parity
 
 pytestmark = pytest.mark.gpu
@@ -84,3 +87,97 @@ def test_wrapper_raises_on_mixed_devices(card):
     o, d = _rays(64, seed=1, bound=4.0, dev=card)
     with pytest.raises(ValueError, match="is on"):
         trace_bvh4.traverse_bvh4(table.cpu(), o, d)
+
+
+# ---- K3 digit histogram, K4 stable rank, K5 exclusive scan ---------------
+# Tolerance: bit-identical (integer kernels); float32 scan within 1e-5 of the
+# running sum of magnitudes (the kernel sums in tree order).
+
+_SHIFTS = [0, 8, 16, 24]
+
+
+def _keys(kind, n, dev):
+    rng = np.random.default_rng(n)
+    if kind == "random":
+        k = rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.int64)
+    elif kind == "duplicates":
+        k = rng.choice([0, 1, 5, 1 << 29, (1 << 30) - 1], size=n).astype(np.int64)
+    elif kind == "equal":
+        k = np.full(n, 0x12345678, np.int64)
+    else:
+        k = np.full(n, C.KEY_PADDING, np.int64)
+    return torch.from_numpy(k).to(dev)
+
+
+@pytest.mark.parametrize("kind", ["random", "duplicates", "equal", "padding"])
+def test_histogram_and_rank_bit_identical_to_plain(card, kind):
+    keys = _keys(kind, 64 * 1024, card)
+    for shift in _SHIFTS:
+        h0, r0 = sort_radix_cuda.digit_histogram.launches, sort_radix_cuda.digit_rank.launches
+        hist_t = sort_radix_cuda.digit_histogram(keys, shift)
+        bases = scan.exclusive_scan(hist_t)
+        dst = sort_radix_cuda.digit_rank(keys, bases, shift)
+        torch.cuda.synchronize()
+        assert sort_radix_cuda.digit_histogram.launches == h0 + 1
+        assert sort_radix_cuda.digit_rank.launches == r0 + 1
+        assert torch.equal(hist_t, sort_radix_cuda.digit_histogram_plain(keys, shift))
+        assert torch.equal(bases, scan.exclusive_scan_plain(hist_t))
+        assert torch.equal(dst, sort_radix_cuda.digit_rank_plain(keys, bases, shift))
+        assert hist_t.dtype == bases.dtype == dst.dtype == torch.int32
+        assert torch.equal(torch.sort(dst).values.int(),
+                           torch.arange(keys.shape[0], device=card, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 5000, 262144, (1 << 20) + 3])
+def test_scan_int_bit_identical_to_plain(card, n, dtype):
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.integers(0, 9, size=n)).to(card, dtype)
+    calls, dev = scan.exclusive_scan.launches, scan.exclusive_scan.device_launches
+    got = scan.exclusive_scan(x)
+    torch.cuda.synchronize()
+    assert scan.exclusive_scan.launches == calls + 1
+    levels = 1 if n <= 1024 else 3 if n <= 1 << 20 else 5
+    assert scan.exclusive_scan.device_launches == dev + levels
+    assert got.dtype == dtype
+    assert torch.equal(got, scan.exclusive_scan_plain(x))
+
+
+def test_scan_float_within_tolerance(card):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(1 << 20) + 77).astype(np.float32)
+    got = scan.exclusive_scan(torch.from_numpy(x).to(card)).cpu().numpy()
+    want = scan.exclusive_scan_reference(x.astype(np.float64))
+    bound = 1e-5 * np.maximum(scan.exclusive_scan_reference(np.abs(x).astype(np.float64)), 1.0)
+    assert np.all(np.abs(got - want) <= bound)
+
+
+@pytest.mark.parametrize("n", [1, 1023, 1025, 5000, 1 << 20])
+def test_cuda_sort_equals_stable_torch_sort_and_counts_launches(card, n):
+    keys = _keys("random", n, card)
+    vals = torch.arange(n, dtype=torch.int32, device=card)
+    h0 = sort_radix_cuda.digit_histogram.launches
+    r0 = sort_radix_cuda.digit_rank.launches
+    s0 = scan.exclusive_scan.launches
+    ko, vo = sort.sort_key_val(keys, vals, impl="cuda")
+    torch.cuda.synchronize()
+    assert sort_radix_cuda.digit_histogram.launches == h0 + 4
+    assert sort_radix_cuda.digit_rank.launches == r0 + 4
+    assert scan.exclusive_scan.launches == s0 + 4
+    wk, wv = sort.sort_key_val(keys, vals, impl="torch")
+    assert torch.equal(ko, wk) and torch.equal(vo, wv)
+
+
+def test_sort_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    keys = _keys("random", 2048, card)
+    with pytest.raises(TypeError):
+        sort_radix_cuda.digit_histogram(keys.int(), 0)
+    with pytest.raises(ValueError):
+        sort_radix_cuda.digit_histogram(keys[:1000], 0)
+    with pytest.raises(ValueError):
+        sort_radix_cuda.digit_histogram(keys, 4)
+    bases = torch.zeros(512, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="are on"):
+        sort_radix_cuda.digit_rank(keys, bases.cpu(), 0)
+    with pytest.raises(TypeError):
+        scan.exclusive_scan(torch.zeros(8, dtype=torch.float64, device=card))

@@ -17,14 +17,30 @@ from unitysimpleraytracing_tpu_torch.core.types import Bvh, Scene
 from unitysimpleraytracing_tpu_torch.ops import lbvh, sort, unique
 
 
+def _build(scene: Scene, sort_impl: str, diagnostics: bool) -> Bvh:
+    keys, sorted_tri = sort.sort_key_val(scene.morton, scene.tri_index, impl=sort_impl)
+    keys = unique.distribute_keys(keys, scene.count)
+    return lbvh.build_bvh_from_sorted(
+        keys, sorted_tri, scene.aabb_min, scene.aabb_max, scene.count,
+        diagnostics=diagnostics,
+    )
+
+
 @torch.no_grad()
 def build_bvh(
     scene: Scene,
+    sort_impl: str = "torch",
     diagnostics: bool = False,
     validate: bool = False,
     builder: str | None = None,
 ) -> Bvh:
     """Construct the BVH for a scene. Requires scene.count >= 2.
+
+    ``sort_impl``: the key sort's engine (`ops/sort.sort_key_val`): "torch"
+    (one stable ``torch.sort``, the default), "radix" (the reference's
+    four-pass decomposition in plain tensor code) or "cuda" (the same
+    decomposition on the hand-written histogram, scan and rank kernels).  All
+    three are stable, so the tree is the same bit for bit.
 
     ``builder``: only "karras" (the reference's radix tree,
     BVH.compute:94-149, the bit-parity surface) is ported.  The JAX
@@ -35,8 +51,12 @@ def build_bvh(
     ``diagnostics`` adds the parent links + per-node depth array
     (validation only; nothing in the render path reads them).
 
-    ``validate=True`` (the runtime validators) is not ported yet and raises
-    (ROADMAP queue 1 item 11).
+    ``validate=True`` runs the promoted runtime validators in situ on the
+    user's actual scene — the reference validates every sort pass inside the
+    real pipeline the same way (ComputeBufferSorter.cs:107-125, readback +
+    permutation/order checks; MeshBufferContainer.cs:181-195 corruption
+    scan).  Host-side readbacks: debug-grade cost, raises AssertionError on
+    the first violated invariant.
     """
     if scene.count < 2:
         raise ValueError("LBVH needs at least 2 triangles (reference assumes the same)")
@@ -46,16 +66,45 @@ def build_bvh(
             "the SAH builders (the JAX default for concrete builds is "
             "'sah_free') are ROADMAP queue 1 item 8"
         )
-    if validate:
-        raise NotImplementedError(
-            "build_bvh(validate=True): the validators are ROADMAP queue 1 item 11"
-        )
-    keys, sorted_tri = sort.sort_key_val(scene.morton, scene.tri_index)
-    keys = unique.distribute_keys(keys, scene.count)
-    return lbvh.build_bvh_from_sorted(
-        keys, sorted_tri, scene.aabb_min, scene.aabb_max, scene.count,
-        diagnostics=diagnostics,
+    if not validate:
+        return _build(scene, sort_impl, diagnostics)
+
+    from unitysimpleraytracing_tpu_torch.utils import validate as V
+
+    count = scene.count
+    bvh = _build(scene, sort_impl, diagnostics=True)
+    # Sort pass (re-run standalone so pre/post states are observable).
+    keys_sorted, tri_sorted = sort.sort_key_val(
+        scene.morton, scene.tri_index, impl=sort_impl
     )
+    V.check_sorted(keys_sorted, count)
+    V.check_permutation(scene.morton, keys_sorted, count)
+    V.check_stability(scene.morton, scene.tri_index, keys_sorted, tri_sorted, count)
+    # DistributeKeys postcondition (BVH.compute:29's precondition).
+    V.check_unique_strictly_increasing(
+        unique.distribute_keys(keys_sorted, count), count
+    )
+    # Per-digit-pass validation of the decomposed engines — the reference
+    # validates after EVERY pass inside the running pipeline
+    # (ComputeBufferSorter.cs:107-125): scan recurrence, per-block histogram
+    # recount, digit-histogram permutation, stable-digit contract.  The
+    # "torch" engine is one fused sort with no pass observables; the radix
+    # decomposition is validated on the scene's actual keys, and the kernel
+    # path too: on all of them on the card, capped on the CPU, where its
+    # wrappers run their plain versions.
+    V.validate_sort_per_pass(scene.morton, scene.tri_index, impl="radix")
+    n_cuda = count if scene.morton.device.type == "cuda" else min(count, 16384)
+    V.validate_sort_per_pass(
+        scene.morton[:n_cuda], scene.tri_index[:n_cuda], impl="cuda"
+    )
+    # Tree topology + refit coverage (the "CORRUPTED" scans).
+    V.check_topology(bvh)
+    V.check_depths(bvh)
+    V.check_refit(bvh, scene.aabb_min, scene.aabb_max)
+    # The validated build carries the diagnostic links either way (a
+    # superset of the diagnostics=False result; nothing downstream reads
+    # them) — no second build.
+    return bvh
 
 
 @torch.no_grad()
