@@ -13,6 +13,7 @@ import unitysimpleraytracing_tpu_torch as pt
 from unitysimpleraytracing_tpu_torch.ops import scan as pscan
 from unitysimpleraytracing_tpu_torch.ops import sort as psort
 from unitysimpleraytracing_tpu_torch.ops import sort_radix_cuda as pcu
+from unitysimpleraytracing_tpu_torch.ops import trace_bvh2 as pt2
 from unitysimpleraytracing_tpu_torch.ops import trace_bvh4 as pt4
 from unitysimpleraytracing_tpu_torch.utils.device import resolve_device
 
@@ -194,3 +195,79 @@ def test_port_calls_no_library_stand_in_for_a_kernel():
         src = inspect.getsource(fn)
         for banned in ("bincount", "histc", "cumsum", "torch.sort", "argsort", "compile"):
             assert banned not in src, (fn.__name__, banned)
+
+
+@pytest.mark.parametrize("module", ["ops.trace_packet", "ops.trace_bvh2"])
+def test_new_traversal_modules_import_no_jax(module):
+    code = (
+        "import sys, importlib\n"
+        f"importlib.import_module('unitysimpleraytracing_tpu_torch.{module}')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'flax', 'unitysimpleraytracing_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+
+
+def test_traverse_bvh2_on_a_cuda_tensor_has_no_path_to_the_plain_version():
+    """Each wrapper calls its plain version in one place, under the test that
+    the rays lie on the CPU; past it there is the shared launcher, which
+    launches or raises, and no ``try`` that could swallow a failed build or
+    launch."""
+    import inspect
+
+    def body_of(fn):
+        src = inspect.getsource(fn)
+        return src[src.index('"""', src.index('"""') + 3) + 3:]  # past the docstring
+
+    for wrapper, plain in ((pt2.traverse_bvh2, "traverse_bvh2_plain"),
+                           (pt4.traverse_bvh4, "traverse_bvh4_plain")):
+        body = body_of(wrapper)
+        assert body.count(plain) == 1, wrapper.__name__
+        cpu_branch = body.index('if origins.device.type == "cpu":')
+        assert cpu_branch < body.index(plain) < body.index("launch_traversal(")
+        assert body.index("launch_traversal(") < body.index(".launches += 1")
+    launcher = body_of(pt4.launch_traversal)
+    assert 'if origins.device.type != "cuda":' in launcher
+    assert "raise RuntimeError" in launcher and "_plain" not in launcher
+    for body in (body_of(pt2.traverse_bvh2), body_of(pt4.traverse_bvh4), launcher):
+        for banned in ("try:", "except", "compile", "torch.jit"):
+            assert banned not in body, banned
+
+
+def test_traverse_bvh2_on_cpu_takes_plain_version_and_counts_no_launch():
+    scene = pt.build_scene(pt.cube_mesh(size=2.0), device="cpu")
+    bvh = pt.build_bvh(scene, builder="karras")
+    table = pt2.prepare_tables(scene, bvh)
+    rng = np.random.default_rng(0)
+    o = torch.from_numpy(rng.uniform(-4, 4, size=(256, 3)).astype(np.float32))
+    d = rng.normal(size=(256, 3)).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d, axis=1, keepdims=True))
+    got = pt2.traverse_bvh2(table, o, d)
+    want = pt2.traverse_bvh2_plain(table, o, d)
+    assert pt2.traverse_bvh2.launches == 0
+    for f in ("t", "tri", "u", "v"):
+        assert torch.equal(getattr(got, f), getattr(want, f))
+    assert bool(got.hit.any())
+
+
+def test_kernel2_source_is_listed_for_the_build_and_build_stays_ignored():
+    from unitysimpleraytracing_tpu_torch.utils import kernel_build
+
+    assert pt2.KERNEL_NAME == "trace_bvh2"
+    text = open(os.path.join(kernel_build.CSRC_DIR, "trace_bvh2.cu"), encoding="utf-8").read()
+    assert "__global__" in text and 'extern "C" int trace_bvh2_launch' in text
+    assert "cudaGetLastError" in text and "__trap()" in text
+    for banned in ("cub::", "thrust::", "#include <torch", "#include <ATen", "optix"):
+        assert banned not in text
+    assert os.path.dirname(kernel_build.library_path(pt2.KERNEL_NAME)) == os.path.join(ROOT, "build")
+    # chip_smoke.py builds it with the others, all started together.
+    smoke = open(os.path.join(ROOT, "chip_smoke.py"), encoding="utf-8").read()
+    names = smoke[smoke.index("kernel_names = ("):smoke.index("started = {")]
+    for mod in ("trace_bvh4", "trace_bvh2", "sort_radix_cuda", "scan"):
+        assert f"{mod}.KERNEL_NAME" in names
+    ignored = [ln.strip() for ln in open(os.path.join(ROOT, ".gitignore"), encoding="utf-8")]
+    assert "build/" in ignored

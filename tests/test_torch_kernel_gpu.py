@@ -12,7 +12,7 @@ import torch
 import unitysimpleraytracing_tpu_torch as pt
 from unitysimpleraytracing_tpu_torch import constants as C
 from unitysimpleraytracing_tpu_torch.ops import (
-    dispatch, scan, sort, sort_radix_cuda, trace_bvh4,
+    dispatch, scan, sort, sort_radix_cuda, trace_bvh2, trace_bvh4,
 )
 from unitysimpleraytracing_tpu_torch.utils.parity import assert_hit_parity
 
@@ -181,3 +181,111 @@ def test_sort_wrappers_raise_on_what_the_kernels_do_not_take(card):
         sort_radix_cuda.digit_rank(keys, bases.cpu(), 0)
     with pytest.raises(TypeError):
         scan.exclusive_scan(torch.zeros(8, dtype=torch.float64, device=card))
+
+
+# ---- K2 binary-record traversal, and the dynamic paths on the card ---------
+# Tolerance: bit-identical to the plain version (same float32 operations in
+# the same order, -fmad=false); between the two record formats the parity
+# contract (hit masks identical, tri flips only at exact-t ties).
+
+_MESHES = {
+    "cube": lambda: pt.cube_mesh(size=2.0),
+    "soup": lambda: pt.random_triangle_soup(3000, seed=7, bound=5.0, tri_size=1.0),
+    "terrain": lambda: pt.terrain_mesh(res=64, size=20.0, amplitude=4.0, seed=0),
+}
+
+
+@pytest.mark.parametrize("scene_name", sorted(_MESHES))
+def test_kernel2_bit_identical_to_plain(card, scene_name):
+    scene = pt.build_scene(_MESHES[scene_name]())
+    bvh = pt.build_bvh(scene, builder="karras")
+    table = trace_bvh2.prepare_tables(scene, bvh)
+    o, d = _rays(10000, seed=3, bound=8.0, dev=card)
+    before = trace_bvh2.traverse_bvh2.launches
+    got, steps = trace_bvh2.traverse_bvh2(table, o, d, count_steps=True)
+    torch.cuda.synchronize()
+    assert trace_bvh2.traverse_bvh2.launches == before + 1
+    want, wsteps = trace_bvh2.traverse_bvh2_plain(table, o, d, count_steps=True)
+    assert_hit_parity(_np(got), _np(want), exact=True)
+    assert torch.equal(got.tri, want.tri) and torch.equal(steps, wsteps)
+    # any-hit and t_init through the same kernel
+    thr = torch.full((10000,), 9.0, device=card)
+    g, gs = trace_bvh2.traverse_bvh2(table, o, d, anyhit_thresh=thr, count_steps=True)
+    w, ws = trace_bvh2.traverse_bvh2_plain(table, o, d, anyhit_thresh=thr, count_steps=True)
+    assert torch.equal(g.t, w.t) and torch.equal(g.tri, w.tri) and torch.equal(gs, ws)
+    assert bool((gs <= steps).all())
+    seed_t = torch.where(got.hit, got.t + 0.01, got.t)
+    g = trace_bvh2.traverse_bvh2(table, o, d, t_init=seed_t)
+    w = trace_bvh2.traverse_bvh2_plain(table, o, d, t_init=seed_t)
+    assert torch.equal(g.t, w.t) and torch.equal(g.tri, w.tri)
+    assert torch.equal(g.t[got.hit], got.t[got.hit])
+    # ... and the BVH4 kernel on the same rays: the parity contract.
+    four = trace_bvh4.traverse_bvh4(trace_bvh4.prepare_tables4(scene, bvh), o, d)
+    assert_hit_parity(_np(got), _np(four))
+
+
+def test_cuda2_dispatch_ragged_batch_and_capacity(card):
+    scene = pt.build_scene(pt.cube_mesh(size=2.0))
+    bvh = pt.build_bvh(scene, builder="karras")
+    o, d = _rays(1000, seed=1, bound=4.0, dev=card)  # ragged: padded to a warp
+    b2, b4 = trace_bvh2.traverse_bvh2.launches, trace_bvh4.traverse_bvh4.launches
+    hits = dispatch.trace_rays(scene, bvh, o, d, impl="cuda2")
+    assert trace_bvh2.traverse_bvh2.launches == b2 + 1
+    assert trace_bvh4.traverse_bvh4.launches == b4
+    assert hits.t.shape == (1000,)
+    ref = dispatch.trace_rays(scene, bvh, o, d, impl="perray")
+    assert_hit_parity(_np(hits), _np(ref), exact=True)
+    plain = dispatch.trace_rays(scene, bvh, o, d, impl="plain2")
+    assert torch.equal(plain.t, hits.t) and torch.equal(plain.tri, hits.tri)
+    assert trace_bvh2.traverse_bvh2.launches == b2 + 1  # plain2, perray: no launch
+    assert torch.equal(dispatch.occluded(scene, bvh, o, d, impl="cuda2"),
+                       dispatch.occluded(scene, bvh, o, d, impl="perray"))
+    with pytest.raises(ValueError, match="is on"):
+        trace_bvh2.traverse_bvh2(trace_bvh2.prepare_tables(scene, bvh).cpu(), o, d)
+    with pytest.raises(dispatch.CapacityError, match="cuda4"):
+        dispatch.resolve_impl("cuda2", 1 << 20, card)
+
+
+@pytest.mark.parametrize("impl", ["cuda4", "cuda2"])
+@pytest.mark.parametrize("shadows", [False, True])
+def test_render_frames_on_the_card_equals_per_frame(card, impl, shadows):
+    scene = pt.build_scene(pt.terrain_mesh(res=48, size=40.0, amplitude=6.0, seed=0))
+    bvh = pt.build_bvh(scene, builder="karras")
+    tex = pt.solid_texture((0.8, 0.7, 0.6, 1.0))
+    bg = np.asarray([0.1, 0.1, 0.12], np.float32)
+    cams = [pt.make_camera(eye=(30 * np.cos(a), 25.0, 30 * np.sin(a)), target=(0, 0, 0),
+                           width=128, height=96) for a in (0.1, 1.3, 2.9)]
+    wrapper = (trace_bvh4.traverse_bvh4 if impl == "cuda4" else trace_bvh2.traverse_bvh2)
+    before = wrapper.launches
+    batch = pt.render_frames(scene, bvh, pt.stack_cameras(cams), tex, bg, impl=impl,
+                             shadows=shadows)
+    assert wrapper.launches == before + (2 if shadows else 1)
+    assert tuple(batch.shape) == (3, 96, 128, 4)
+    for i, c in enumerate(cams):
+        assert torch.equal(batch[i], pt.render_frame(scene, bvh, c, tex, bg, impl=impl,
+                                                     shadows=shadows))
+    plain = pt.render_frames(scene, bvh, pt.stack_cameras(cams), tex, bg,
+                             impl=impl.replace("cuda", "plain"), shadows=shadows)
+    assert torch.equal(plain, batch)
+
+
+@pytest.mark.parametrize("impl", ["cuda4", "cuda2"])
+def test_animated_renderer_on_the_card_equals_unfused(card, impl):
+    scene = pt.build_scene(pt.terrain_mesh(res=32, size=16.0, amplitude=3.0, seed=1))
+    bvh = pt.build_bvh(scene, builder="karras")
+    cam = pt.make_camera(eye=(12, 10, 14), target=(0, 0, 0), width=64, height=64)
+    t = scene.triangles
+    base = torch.stack([t.a, t.b, t.c], dim=1)
+    anim = pt.make_animated_renderer(scene, bvh, cam, impl=impl)
+    wrapper = (trace_bvh4.traverse_bvh4 if impl == "cuda4" else trace_bvh2.traverse_bvh2)
+    for phase in (0.3, 1.1):
+        pos = base.clone()
+        pos[..., 1] += 0.4 * torch.sin(base[..., 0] * 0.5 + phase)
+        before = wrapper.launches
+        got = anim(pos)
+        assert wrapper.launches == before + 1
+        s2 = pt.deform_scene(scene, pos)
+        ref = pt.render_hits(s2, pt.refit_bvh(s2, bvh), cam, impl=impl)
+        for f in ("t", "tri", "u", "v"):
+            assert torch.equal(getattr(got, f), getattr(ref, f)), f
+        assert bool(got.hit.any())

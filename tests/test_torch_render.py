@@ -183,7 +183,7 @@ def test_cli_orbit_subdivide_background_image(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "flag", [["--orbit-batch"], ["--bvh-cache", "x.npz"], ["--gizmo"], ["--gizmo-tris"],
+    "flag", [["--gizmo", "--gizmo-index", "3"], ["--bvh-cache", "x.npz"], ["--gizmo"], ["--gizmo-tris"],
              ["--builder", "sah"], ["--builder", "sah_free"]])
 def test_cli_unported_options_exit_with_message(tmp_path, capsys, flag):
     obj = tmp_path / "pyramid.obj"

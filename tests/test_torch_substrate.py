@@ -68,7 +68,8 @@ def test_registry_lists_what_the_port_runs():
     assert registry.stages() == ["scan", "sort", "topology", "traverse"]
     assert registry.engines("sort") == ["cuda", "radix", "torch"]
     assert registry.engines("scan") == ["cuda", "torch"]
-    assert registry.engines("traverse") == ["cuda4", "perray", "plain4"]
+    assert registry.engines("traverse") == [
+        "cuda2", "cuda4", "packet", "perray", "plain2", "plain4"]
     assert registry.engines("topology") == ["karras"]
     with pytest.raises(KeyError, match="available"):
         registry.get("sort", "nope")

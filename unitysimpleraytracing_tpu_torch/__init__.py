@@ -1,14 +1,15 @@
 """LBVH raytracing framework — PyTorch/CUDA port for NVIDIA Hopper.
 
 The counterpart of ``unitysimpleraytracing_tpu`` (JAX/Pallas), module for
-module: GPU sort → Karras LBVH → BVH4 record tables → per-ray traversal by a
-hand-written CUDA kernel → shaded, composited image.  The port imports torch
+module: GPU sort → Karras LBVH → BVH4 or binary record tables → per-ray
+traversal by a hand-written CUDA kernel → shaded, composited image, one frame
+at a time, in batches of frames, or refit per frame for a deforming mesh.  The port imports torch
 and numpy only; it never imports the JAX package.  Entry points that create
 tensors take ``device=None``, which means the card and raises without one.
 """
 
 from unitysimpleraytracing_tpu_torch import constants
-from unitysimpleraytracing_tpu_torch.core.camera import Camera, make_camera
+from unitysimpleraytracing_tpu_torch.core.camera import Camera, make_camera, stack_cameras
 from unitysimpleraytracing_tpu_torch.core.mesh import (
     MeshData,
     build_scene,
@@ -32,7 +33,9 @@ from unitysimpleraytracing_tpu_torch.pipeline.build import (
 )
 from unitysimpleraytracing_tpu_torch.pipeline.render import (
     frame_to_image,
+    make_animated_renderer,
     render_frame,
+    render_frames,
     render_hits,
     render_rgba,
 )
@@ -57,12 +60,15 @@ __all__ = [
     "load_obj",
     "subdivide_mesh",
     "load_texture",
+    "make_animated_renderer",
     "make_camera",
     "random_triangle_soup",
     "terrain_mesh",
     "render_frame",
+    "render_frames",
     "render_hits",
     "render_rgba",
     "solid_texture",
+    "stack_cameras",
     "texture_from_array",
 ]

@@ -4,7 +4,9 @@ JAX package's containers) and the port's containers.
 Inputs are plain dicts, or any object with the same field names, of arrays.
 With these a test hands a JAX-built ``Scene``/``Bvh`` to the port's table
 packer, traversal and renderer, and port-built ones back for bit comparison.
-Morton codes are uint32 on the numpy side and int64 inside the port.
+Morton codes are uint32 on the numpy side and int64 inside the port.  Record
+tables, stacked cameras and the (T, 3, 3) corner positions of the animated
+path cross the same way.
 """
 from __future__ import annotations
 
@@ -62,7 +64,31 @@ def bvh_from_numpy(d, device=None) -> Bvh:
 
 
 def camera_from_numpy(d, device=None) -> Camera:
+    """One camera, or a stack of F cameras (tensor fields with a leading F
+    axis, as `core.camera.stack_cameras` and the JAX package's stacked
+    pytree have them)."""
     return _from_fields(Camera, d, resolve_device(device))
+
+
+def table_from_numpy(table, device=None) -> torch.Tensor:
+    """A record table packed elsewhere — ``(cap, 32)`` binary records (the
+    JAX package's ``pack_tables(pack=1)``; its pack=2|4 views go in
+    reshaped to 32 columns) or ``(cap4, 64)`` BVH4 records — as the float32
+    tensor the port's traversals take."""
+    arr = np.asarray(table)
+    if arr.dtype != np.float32 or arr.ndim != 2 or arr.shape[1] not in (32, 64):
+        raise ValueError(
+            f"not a float32 (cap, 32) or (cap4, 64) record table: {arr.dtype} {arr.shape}")
+    return _tensor(arr, resolve_device(device))
+
+
+def positions_from_numpy(positions, device=None) -> torch.Tensor:
+    """The (T, 3, 3) float32 corner positions `deform_scene` and the
+    animated renderer's ``frame`` take (T = the scene's padded capacity)."""
+    arr = np.asarray(positions)
+    if arr.dtype != np.float32 or arr.ndim != 3 or arr.shape[1:] != (3, 3):
+        raise ValueError(f"not float32 (T, 3, 3) corner positions: {arr.dtype} {arr.shape}")
+    return _tensor(arr, resolve_device(device))
 
 
 def texture_from_numpy(d, device=None) -> Texture:

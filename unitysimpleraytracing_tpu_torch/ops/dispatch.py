@@ -1,6 +1,6 @@
 """Traversal implementation dispatch.
 
-Three interchangeable traversal engines, one contract (hit records agree up
+Six interchangeable traversal engines, one contract (hit records agree up
 to exact-t ties):
 
 - ``cuda4``  — the hand-written CUDA kernel over BVH4 records
@@ -8,6 +8,13 @@ to exact-t ties):
 - ``plain4`` — the same BVH4 traversal in plain PyTorch
   (traverse_bvh4_plain): what the CPU runs; on CUDA tensors it runs only when
   asked for by name (to compare against the kernel).
+- ``cuda2``  — the hand-written CUDA kernel over binary records
+  (ops/trace_bvh2.traverse_bvh2): one tree level per record fetch; the
+  engine of the dynamic paths that re-pack the whole table per frame.
+- ``plain2`` — the same binary-record traversal in plain PyTorch
+  (traverse_bvh2_plain).
+- ``packet`` — shared-stack packets of 1024 rays in plain PyTorch
+  (ops/trace_packet.traverse_packets), bit-identical to ``perray``.
 - ``perray`` — per-ray BVH2 stacks in the original shader's visit order
   (ops/trace.traverse); the oracle.
 
@@ -18,11 +25,16 @@ from __future__ import annotations
 import torch
 
 from unitysimpleraytracing_tpu_torch.core.types import Bvh, HitRecord, Scene
-from unitysimpleraytracing_tpu_torch.ops import trace, trace_bvh4
+from unitysimpleraytracing_tpu_torch.ops import trace, trace_bvh2, trace_bvh4, trace_packet
 
 # Single-tree envelope: the record metas hold triangle ids and record ids in
 # 21 bits (ops/trace_bvh4).
 MAX_CAPACITY = (1 << 21) - 1
+# Rays per shared stack of the "packet" engine: one 32x32 image tile.
+PACKET = 1024
+
+_ENGINES4 = ("cuda4", "plain4")
+_ENGINES2 = ("cuda2", "plain2")
 
 
 class CapacityError(ValueError):
@@ -38,12 +50,19 @@ class CapacityError(ValueError):
 def resolve_impl(impl: str, capacity: int, device) -> str:
     if impl == "auto":
         impl = "cuda4" if torch.device(device).type == "cuda" else "plain4"
-    if impl in ("cuda4", "plain4") and capacity > MAX_CAPACITY:
+    if impl in _ENGINES4 and capacity > MAX_CAPACITY:
         raise CapacityError(
             f"scene capacity {capacity} exceeds the single-tree envelope "
             f"({MAX_CAPACITY} triangles: record metas hold 21-bit ids). The "
             f"chunked large-scene path is not ported yet (ROADMAP queue 1 "
             f"item 10); impl='perray' has no such bound."
+        )
+    if impl in _ENGINES2 and capacity > trace_bvh2.MAX_CAPACITY:
+        raise CapacityError(
+            f"scene capacity {capacity} exceeds the binary-record envelope "
+            f"({trace_bvh2.MAX_CAPACITY} triangles: record metas hold 20-bit "
+            f"ids). Use impl='cuda4' (BVH4 records, 21-bit ids) or "
+            f"impl='perray'."
         )
     return impl
 
@@ -62,24 +81,33 @@ def trace_rays(
     """Trace an (R, 3) ray batch with the chosen engine, padding R as needed.
 
     Rays should arrive in a coherent order (image-tile order for camera rays).
-    ``tables`` optionally carries a `prepare_tables4` result so a static scene
-    is packed once, not per frame.  ``t_init`` (optional (R,) f32) is an exact
-    pruning bound from a previous traversal; ``anyhit_thresh`` (optional (R,)
+    ``tables`` optionally carries the engine's record table
+    (`trace_bvh4.prepare_tables4` for cuda4/plain4, `trace_bvh2.prepare_tables`
+    for cuda2/plain2; the two are told apart by their 64 or 32 slots per row)
+    so a static scene is packed once, not per frame.  ``t_init`` (optional
+    (R,) f32) is an exact pruning bound from a previous traversal;
+    ``anyhit_thresh`` (optional (R,)
     f32, 0 = off) is the occlusion early-exit: a ray's t collapses to 0 at
     the first hit strictly below the threshold (the occlusion BOOLEAN
     ``hit & (t < thresh)`` is identical to the nearest-hit answer — the
     nearest hit is minimal, so one below-threshold hit exists iff the nearest
-    is below).  The per-ray oracle ignores both; results are identical
-    either way.
+    is below).  The per-ray oracle and the packet engine ignore both;
+    results are identical either way.
     """
     impl = resolve_impl(impl, bvh.capacity, origins.device)
     if impl == "perray":
         return trace.traverse(scene, bvh, origins, dirs)
-    if impl not in ("cuda4", "plain4"):
+    if impl == "packet":
+        multiple = PACKET
+    elif impl in _ENGINES4:
+        multiple = trace_bvh4.RAY_MULTIPLE
+    elif impl in _ENGINES2:
+        multiple = trace_bvh2.RAY_MULTIPLE
+    else:
         raise ValueError(f"unknown traversal impl {impl!r}")
 
     R = origins.shape[0]
-    pad = (-R) % trace_bvh4.RAY_MULTIPLE
+    pad = (-R) % multiple
     if pad:
         origins = torch.cat([origins, origins[:1].expand(pad, 3)])
         dirs = torch.cat([dirs, dirs[:1].expand(pad, 3)])
@@ -89,13 +117,22 @@ def trace_rays(
         if anyhit_thresh is not None:
             anyhit_thresh = torch.cat([anyhit_thresh, zeros])
 
-    if tables is None:
-        tables = trace_bvh4.prepare_tables4(scene, bvh)
-    run = trace_bvh4.traverse_bvh4 if impl == "cuda4" else trace_bvh4.traverse_bvh4_plain
-    hits = run(
-        tables, origins.contiguous(), dirs.contiguous(),
-        t_init=t_init, anyhit_thresh=anyhit_thresh,
-    )
+    if impl == "packet":
+        hits = trace_packet.traverse_packets(scene, bvh, origins, dirs, packet_size=PACKET)
+    else:
+        if impl in _ENGINES4:
+            if tables is None:
+                tables = trace_bvh4.prepare_tables4(scene, bvh)
+            run = trace_bvh4.traverse_bvh4 if impl == "cuda4" else trace_bvh4.traverse_bvh4_plain
+        else:
+            if tables is None:
+                tables = trace_bvh2.prepare_tables(scene, bvh)
+            run = trace_bvh2.traverse_bvh2 if impl == "cuda2" else trace_bvh2.traverse_bvh2_plain
+        # A table of the other record format fails the engine's shape check.
+        hits = run(
+            tables, origins.contiguous(), dirs.contiguous(),
+            t_init=t_init, anyhit_thresh=anyhit_thresh,
+        )
     if pad:
         hits = HitRecord(t=hits.t[:R], tri=hits.tri[:R], u=hits.u[:R], v=hits.v[:R])
     return hits

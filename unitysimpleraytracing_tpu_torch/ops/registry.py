@@ -14,9 +14,11 @@ Stages and their engines — exactly what the port runs:
                 decomposition in plain tensor code), "cuda" (histogram, scan
                 and rank kernels, ops/sort_radix_cuda)
 - ``scan``:     "torch" (shifted cumsum), "cuda" (ops/scan)
-- ``traverse``: "perray" (per-ray BVH2 stacks, ops/trace), "plain4" (BVH4
+- ``traverse``: "perray" (per-ray BVH2 stacks, ops/trace), "packet"
+                (shared-stack packets, ops/trace_packet), "plain4" (BVH4
                 records in plain tensor code), "cuda4" (the BVH4 kernel,
-                ops/trace_bvh4 — the production engine)
+                ops/trace_bvh4 — the production engine), "plain2" and
+                "cuda2" (binary records and their kernel, ops/trace_bvh2)
 - ``topology``: "karras" (the reference's radix tree, ops/lbvh)
 """
 from __future__ import annotations
@@ -63,7 +65,9 @@ def _register_builtins() -> None:
         sort,
         sort_radix_cuda,
         trace,
+        trace_bvh2,
         trace_bvh4,
+        trace_packet,
     )
 
     register("sort", "torch", functools.partial(sort.sort_key_val, impl="torch"))
@@ -76,6 +80,9 @@ def _register_builtins() -> None:
     register("traverse", "perray", trace.traverse)
     register("traverse", "plain4", trace_bvh4.traverse_bvh4_plain)
     register("traverse", "cuda4", trace_bvh4.traverse_bvh4)
+    register("traverse", "packet", trace_packet.traverse_packets)
+    register("traverse", "plain2", trace_bvh2.traverse_bvh2_plain)
+    register("traverse", "cuda2", trace_bvh2.traverse_bvh2)
 
     register("topology", "karras", lbvh.build_bvh_from_sorted)
 

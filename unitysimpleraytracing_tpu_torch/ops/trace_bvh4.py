@@ -290,10 +290,11 @@ def prepare_tables4(scene: Scene, bvh: Bvh) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def _check_inputs(table, origins, dirs, t_init, anyhit_thresh):
-    """Raise on anything the kernel does not take (both versions share the
-    contract, so the CPU tests exercise the same checks)."""
-    table_geometry(table)
+def check_ray_batch(table, origins, dirs, t_init, anyhit_thresh):
+    """Raise on a ray batch a traversal kernel does not take: float32,
+    contiguous, one device, (R, 3) rays and (R,) seeds.  Shared by the BVH4
+    and the binary-record engines, kernel and plain version alike, so the CPU
+    tests exercise the checks the card sees."""
     R = origins.shape[0]
     if R == 0:
         raise ValueError("empty ray batch")
@@ -314,6 +315,11 @@ def _check_inputs(table, origins, dirs, t_init, anyhit_thresh):
             raise ValueError(f"{name} is on {x.device}, rays are on {origins.device}")
 
 
+def _check_inputs(table, origins, dirs, t_init, anyhit_thresh):
+    table_geometry(table)
+    check_ray_batch(table, origins, dirs, t_init, anyhit_thresh)
+
+
 def _load_kernel():
     """The kernel's C entry point, built by nvcc on first use."""
     lib = kernel_build.load_kernel_library(KERNEL_NAME)
@@ -322,6 +328,39 @@ def _load_kernel():
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch_traversal(launch, name, table, origins, dirs, t_init, anyhit_thresh, count_steps):
+    """Launch a traversal kernel (the C entry point ``launch`` of
+    ``csrc/<name>.cu``; both kernels share one signature) on checked CUDA
+    tensors, on the current stream, without synchronising: allocates the
+    outputs, raises if the rays are not on a CUDA device or the launch is
+    refused.  Returns ``(HitRecord, steps or None)``."""
+    if origins.device.type != "cuda":
+        raise ValueError(f"unsupported device {origins.device}")
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned")
+    R = origins.shape[0]
+    dev = origins.device
+    out_t = torch.empty((R,), dtype=torch.float32, device=dev)
+    out_tri = torch.empty((R,), dtype=torch.int32, device=dev)
+    out_u = torch.empty((R,), dtype=torch.float32, device=dev)
+    out_v = torch.empty((R,), dtype=torch.float32, device=dev)
+    steps = torch.empty((R,), dtype=torch.int32, device=dev) if count_steps else None
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = launch(
+            ptr(table), ptr(origins), ptr(dirs), ptr(t_init), ptr(anyhit_thresh),
+            ptr(out_t), ptr(out_tri), ptr(out_u), ptr(out_v), ptr(steps),
+            R, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return HitRecord(t=out_t, tri=out_tri, u=out_u, v=out_v), steps
 
 
 @torch.no_grad()
@@ -352,33 +391,10 @@ def traverse_bvh4(
         return traverse_bvh4_plain(
             table, origins, dirs, t_init, anyhit_thresh, count_steps
         )
-    if origins.device.type != "cuda":
-        raise ValueError(f"unsupported device {origins.device}")
-    if table.data_ptr() % 16:
-        raise ValueError("table must be 16-byte aligned")
-    launch = _load_kernel()
-    R = origins.shape[0]
-    dev = origins.device
-    out_t = torch.empty((R,), dtype=torch.float32, device=dev)
-    out_tri = torch.empty((R,), dtype=torch.int32, device=dev)
-    out_u = torch.empty((R,), dtype=torch.float32, device=dev)
-    out_v = torch.empty((R,), dtype=torch.float32, device=dev)
-    steps = torch.empty((R,), dtype=torch.int32, device=dev) if count_steps else None
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(
-            ptr(table), ptr(origins), ptr(dirs), ptr(t_init), ptr(anyhit_thresh),
-            ptr(out_t), ptr(out_tri), ptr(out_u), ptr(out_v), ptr(steps),
-            R, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"trace_bvh4 kernel launch failed: CUDA error {err}")
+    hits, steps = launch_traversal(
+        _load_kernel(), KERNEL_NAME, table, origins, dirs, t_init, anyhit_thresh, count_steps
+    )
     traverse_bvh4.launches += 1
-    hits = HitRecord(t=out_t, tri=out_tri, u=out_u, v=out_v)
     return (hits, steps) if count_steps else hits
 
 
@@ -484,28 +500,13 @@ def _plain_step(table, o, d, inv, thr, t, tri, u, v, stack, sp, steps, work):
     return t, tri, u, v, sp, steps
 
 
-@torch.no_grad()
-def traverse_bvh4_plain(
-    table: torch.Tensor,
-    origins: torch.Tensor,
-    dirs: torch.Tensor,
-    t_init: torch.Tensor | None = None,
-    anyhit_thresh: torch.Tensor | None = None,
-    count_steps: bool = False,
-    work: dict | None = None,
-):
-    """Plain PyTorch version of `traverse_bvh4` (same signature, any device):
-    a lock-step batched per-ray DFS over the same table — per-ray stack rows,
-    one pop per still-active ray per step, masked updates — with the kernel's
-    per-ray near/far order and arithmetic order.  Rays that have finished are
-    dropped from the working set from time to time, so late steps cost only
-    the rays still walking.
-
-    ``work`` (this version only): a dict that receives what the walk needed —
-    ``records_visited`` (distinct records popped by any ray) and
-    ``leaf_tests`` (triangle tests run) — the data-dependent terms of the
-    kernel's roofline bound.  The kernel walks the same records."""
-    _check_inputs(table, origins, dirs, t_init, anyhit_thresh)
+def plain_traverse(step, max_push, table, origins, dirs, t_init, anyhit_thresh,
+                   count_steps, work):
+    """The lock-step loop shared by the plain versions of both traversal
+    kernels: per-ray stack rows, ``step`` (one pop for every still-active ray
+    of the working set, pushing at most ``max_push`` entries) until no ray
+    walks; rays that have finished are dropped from the working set from time
+    to time, so late steps cost only the rays still walking."""
     if work is not None:
         work["visited"] = torch.zeros(table.shape[0], dtype=torch.bool, device=table.device)
         work["leaf_tests"] = torch.zeros((), dtype=torch.int64, device=table.device)
@@ -527,7 +528,9 @@ def traverse_bvh4_plain(
     # Slack columns: overflow past the kernel's 64 entries is detected at the
     # next check instead of indexing out of range.
     depth = C.TRAVERSAL_STACK_DEPTH
-    stack = torch.zeros((R, depth + 4 * _PLAIN_CHECK_EVERY), dtype=torch.int32, device=dev)
+    stack = torch.zeros(
+        (R, depth + max_push * _PLAIN_CHECK_EVERY), dtype=torch.int32, device=dev
+    )
     sp = torch.ones((R,), dtype=torch.int64, device=dev)
 
     it = 0
@@ -546,7 +549,7 @@ def traverse_bvh4_plain(
                 ray, o, d, inv, thr = ray[keep], o[keep], d[keep], inv[keep], thr[keep]
                 t, tri, u, v, steps = t[keep], tri[keep], u[keep], v[keep], steps[keep]
                 stack, sp = stack[keep], sp[keep]
-        t, tri, u, v, sp, steps = _plain_step(
+        t, tri, u, v, sp, steps = step(
             table, o, d, inv, thr, t, tri, u, v, stack, sp, steps, work
         )
         it += 1
@@ -556,3 +559,28 @@ def traverse_bvh4_plain(
 
     hits = HitRecord(t=out_t, tri=out_tri, u=out_u, v=out_v)
     return (hits, out_steps) if count_steps else hits
+
+
+@torch.no_grad()
+def traverse_bvh4_plain(
+    table: torch.Tensor,
+    origins: torch.Tensor,
+    dirs: torch.Tensor,
+    t_init: torch.Tensor | None = None,
+    anyhit_thresh: torch.Tensor | None = None,
+    count_steps: bool = False,
+    work: dict | None = None,
+):
+    """Plain PyTorch version of `traverse_bvh4` (same signature, any device):
+    a lock-step batched per-ray DFS over the same table — per-ray stack rows,
+    one pop per still-active ray per step, masked updates (`plain_traverse`)
+    — with the kernel's per-ray near/far order and arithmetic order.
+
+    ``work`` (this version only): a dict that receives what the walk needed —
+    ``records_visited`` (distinct records popped by any ray) and
+    ``leaf_tests`` (triangle tests run) — the data-dependent terms of the
+    kernel's roofline bound.  The kernel walks the same records."""
+    _check_inputs(table, origins, dirs, t_init, anyhit_thresh)
+    return plain_traverse(
+        _plain_step, 4, table, origins, dirs, t_init, anyhit_thresh, count_steps, work
+    )

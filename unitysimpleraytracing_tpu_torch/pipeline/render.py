@@ -3,9 +3,9 @@
 The reference's per-frame path (``RaytracingMeshDrawer.cs:76-89``) dispatches
 the traversal kernel into an RGBA16F UAV and composites in ``OnRenderImage``.
 Here `render_frame` produces the final (H, W, 4) image on the scene's device;
-`render_rgba` returns just the traced layer (the UAV analog).  Batched and
-animated frames (``render_frames``, ``make_animated_renderer``) are not ported
-yet (ROADMAP queue 1, leftovers).
+`render_rgba` returns just the traced layer (the UAV analog).  `render_frames`
+traces F stacked cameras as one ray batch; `make_animated_renderer` gives the
+refit-per-frame loop of a deforming mesh.
 """
 from __future__ import annotations
 
@@ -15,14 +15,16 @@ import torch
 from unitysimpleraytracing_tpu_torch.core.camera import Camera, generate_rays
 from unitysimpleraytracing_tpu_torch.core.texture import Texture
 from unitysimpleraytracing_tpu_torch.core.types import Bvh, HitRecord, Scene
-from unitysimpleraytracing_tpu_torch.ops import trace, trace_bvh4
+from unitysimpleraytracing_tpu_torch.ops import trace, trace_bvh2, trace_bvh4
 from unitysimpleraytracing_tpu_torch.ops.dispatch import (
     _row_major,
     _tile_major,
     camera_trace,
     occluded,
     resolve_impl,
+    trace_rays,
 )
+from unitysimpleraytracing_tpu_torch.pipeline.build import deform_scene, refit_bvh
 
 
 def _prepared(scene: Scene, bvh: Bvh, impl: str):
@@ -31,6 +33,8 @@ def _prepared(scene: Scene, bvh: Bvh, impl: str):
     RaytracingMeshDrawer.cs:30-84)."""
     if impl in ("cuda4", "plain4"):
         return trace_bvh4.prepare_tables4(scene, bvh)
+    if impl in ("cuda2", "plain2"):
+        return trace_bvh2.prepare_tables(scene, bvh)
     return None
 
 
@@ -53,9 +57,19 @@ def _shadow_origin_bound(scene, miss_o):
 
 
 def shadow_rays(scene, bvh, hits, cam, substitute=True):
-    """Shadow rays toward the reference's fixed directional light (1,1,1), in
-    row-major pixel order: ``(origins, dirs, origin_bound)``.  Rays start at
-    the hit point, offset along the light to avoid self-intersection.
+    """Shadow rays of one frame, in row-major pixel order (see
+    `_shadow_rays_from`)."""
+    o, d = generate_rays(cam)
+    return _shadow_rays_from(scene, bvh, hits, o, d, substitute)
+
+
+def _shadow_rays_from(scene, bvh, hits, o, d, substitute=True):
+    """Shadow rays toward the reference's fixed directional light (1,1,1) for
+    the primary rays ``o``, ``d`` (R, 3) and their ``hits``, in the same
+    order: ``(origins, dirs, origin_bound)``.  Rays start at the hit point,
+    offset along the light to avoid self-intersection.  Every operation is
+    per ray, so one frame's rays come out the same whether they are built
+    alone or inside a batch of frames.
 
     - Hit points come from ``origin + t*dir`` (no vertex gathers; fp-identical
       to the surface point up to ULPs, and the 1e-3 light offset dwarfs that).
@@ -68,7 +82,6 @@ def shadow_rays(scene, bvh, hits, cam, substitute=True):
       on max|origins| from the scene alone (hit points sit inside the scene
       box + the 1e-3 light offset; miss pixels use miss_o) — the SAME
       arithmetic whichever rays share the occlusion call."""
-    o, d = generate_rays(cam)
     dev = o.device
     light = (1.0 / torch.sqrt(torch.tensor(3.0, dtype=torch.float32, device=dev))).expand(3)
     # Kept modest (~2x extent, not +1e6) so occluded()'s far-point scale —
@@ -164,6 +177,104 @@ def render_frame(
     bg = torch.as_tensor(background, dtype=torch.float32, device=traced.device)
     bg = bg.expand(cam.height, cam.width, 3)
     return trace.compose(bg, traced)
+
+
+@torch.no_grad()
+def render_frames(
+    scene: Scene,
+    bvh: Bvh,
+    cams: Camera,
+    tex: Texture,
+    background,  # (H, W, 3) or (3,) solid color; tensor or array
+    impl: str = "auto",
+    shadows: bool = False,
+) -> torch.Tensor:
+    """Batched animation render: (F, H, W, 4) frames from F stacked camera
+    poses (`core.camera.stack_cameras`).
+
+    The offline-throughput path the reference's interactive loop cannot
+    express (RaytracingMeshDrawer.cs:76-89 renders one frame per Update):
+    frames are independent, so the whole animation flattens into ONE ray
+    batch — per-frame tile-major rays concatenate to (F*H*W, 3), ONE
+    traversal call covers every frame's primary rays and ONE its shadow
+    rays, against the frame-invariant table.  Shading and the shadow
+    construction are per-ray operations over flat hit arrays, so they run on
+    the concatenated batch unchanged.  Bit-identical to F calls of
+    `render_frame`.  Width and height must be multiples of 32."""
+    f = cams.cam_to_world.shape[0]
+    if cams.cam_to_world.ndim != 3:
+        raise ValueError("render_frames takes stacked cameras (stack_cameras)")
+    h, w = cams.height, cams.width
+    if h % 32 or w % 32:
+        raise ValueError("batched frames need 32-divisible dims")
+    impl = _resolve(bvh, cams, impl)
+    tables = _prepared(scene, bvh, impl)
+
+    # An (F*H, W) image in tile-major order IS the per-frame tile-major
+    # orders one after another, because H is a whole number of tiles.
+    o, d = generate_rays(cams)  # (F, H*W, 3) each
+    ot = _tile_major(o.reshape(f * h * w, 3), f * h, w, 32)
+    dt = _tile_major(d.reshape(f * h * w, 3), f * h, w, 32)
+    hits = trace_rays(scene, bvh, ot, dt, impl=impl, tables=tables)
+
+    shadow = None
+    if shadows:
+        so, sd, origin_bound = _shadow_rays_from(scene, bvh, hits, ot, dt)
+        shadow = occluded(
+            scene, bvh, so, sd, impl=impl, tables=tables, origin_bound=origin_bound
+        ) & hits.hit
+        shadow = _row_major(shadow, f * h, w, 32)
+    hits = HitRecord(
+        t=_row_major(hits.t, f * h, w, 32),
+        tri=_row_major(hits.tri, f * h, w, 32),
+        u=_row_major(hits.u, f * h, w, 32),
+        v=_row_major(hits.v, f * h, w, 32),
+    )
+    rgba = trace.shade(scene, tex, hits, shadow=shadow).reshape(f, h, w, 4)
+    bg = torch.as_tensor(background, dtype=torch.float32, device=rgba.device)
+    return trace.compose(bg.expand(h, w, 3), rgba)
+
+
+def make_animated_renderer(scene: Scene, bvh: Bvh, cam: Camera, impl: str = "auto"):
+    """Per-frame animation renderer: returns ``frame(positions) -> HitRecord``
+    which runs deform → refit → record-table update → trace.
+
+    For the BVH4 engines the topology-dependent half of the table pack (entry
+    sources + metas, `trace_bvh4._pack_plan4`) is computed ONCE here and
+    closed over; each frame repays only the geometry gathers
+    (`_apply_plan4`).  The binary-record engines re-pack their whole table
+    from the refitted tree each frame (`trace_bvh2.pack_tables`), and
+    ``packet`` / ``perray`` read the scene and tree directly.  The reference
+    rebuilds everything each Awake and has no animated path at all
+    (RaytracingMeshDrawer.cs:30-84).
+
+    ``positions`` is the (T, 3, 3) deformed corner array (`deform_scene`'s
+    input).  Bit-identical to the unfused deform / refit / `render_hits`
+    sequence: both run the same eager code.  The JAX package rejects a
+    traced tree here; PyTorch has no traced case, so there is nothing to
+    reject."""
+    impl = _resolve(bvh, cam, impl)
+    plan = None
+    if impl in ("cuda4", "plain4"):
+        mask, new_id, cap4 = trace_bvh4._node_mask_cached(bvh)
+        cap4 = max(cap4, 1)
+        # Same meta-packing guards as pack_tables4 (idx + leaf<<21 + ax<<22).
+        if cap4 >= (1 << 21) or bvh.capacity >= (1 << 21):
+            raise ValueError("meta packing needs node and triangle ids < 2^21")
+        plan = trace_bvh4._pack_plan4(bvh, mask, new_id, cap4)
+
+    @torch.no_grad()
+    def frame(positions: torch.Tensor) -> HitRecord:
+        s2 = deform_scene(scene, positions)
+        b2 = refit_bvh(s2, bvh)
+        tables = None
+        if plan is not None:
+            tables = trace_bvh4._apply_plan4(s2, b2, *plan)
+        elif impl in ("cuda2", "plain2"):
+            tables = trace_bvh2.pack_tables(s2, b2)
+        return camera_trace(s2, b2, cam, impl=impl, tables=tables)
+
+    return frame
 
 
 def frame_to_image(frame: torch.Tensor) -> np.ndarray:
