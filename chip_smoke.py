@@ -17,7 +17,13 @@ the repo calls real (260,642 triangles at 1920x1056 with shadow rays;
   (a group of orbit frames as one ray batch), ``make_animated_renderer``
   (deform → refit → table update → trace, per frame), both through the BVH4
   kernel and through the binary-record kernel (``impl="cuda2"``), and the
-  shared-stack packet engine against the per-ray oracle.
+  shared-stack packet engine against the per-ray oracle;
+- the measurement path: the primitive-cost probes P1 and P2 through their
+  entry point (``benchmarks/kernel_probe.main`` at ``--iters 20000``);
+- the default build: ``build_bvh(scene)`` with no ``builder`` (free-order
+  sweep SAH), ``"sah"`` and ``"karras"`` in turns on the 260,642-triangle
+  scene, ``validate=True`` on the default tree, frames and both traversal
+  kernels on all three trees, and one ``"sah"`` build of 1,048,352 triangles.
 
 It builds the hand-written kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, shows by launch counts
@@ -26,8 +32,8 @@ images, and times every stage with CUDA events.
 
 ``--out DIR`` is where the rendered PNG goes (default ``build/chip_smoke``
 under this checkout).  ``--profile`` adds a ``torch.profiler`` pass over three frames of the
-260,642-triangle path (device busy share, kernels by device time); without
-that flag the pass is skipped.
+260,642-triangle path and over one default build of that scene (device busy
+share, kernels by device time); without that flag the passes are skipped.
 
 It needs a CUDA device and fails without one; nothing here falls back to the
 CPU and any failed phase ends the run with a non-zero exit code.  Each phase
@@ -47,25 +53,13 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from unitysimpleraytracing_tpu_torch.utils.profiling import (
+    OPS_PER_LEAF_TEST2, OPS_PER_POP2, PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S, RECORD_BYTES2,
+    Timer, roofline_ms,
+)
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(HERE, "tests", "golden")
-
-# Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
-# float32 rate outside the tensor cores.  The roofline bound is stated
-# against these whatever the card's power limit, which is printed beside it.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
-# Float32 operations of csrc/trace_bvh4.cu, counted from its source.
-# Per popped record: 4 slab tests x (6 sub + 6 mul + 10 fmin/fmax + 3 compare).
-OPS_PER_POP = 4 * 25
-# Per triangle test: two crosses (18), four dots (20), 1 divide, 3 subtracts,
-# 3 scalings by 1/det, u+v, 7 compares.
-OPS_PER_LEAF_TEST = 53
-# csrc/trace_bvh2.cu: two slab tests per popped 128-byte record; a triangle
-# test also differences its vertices (e1 = b - a, e2 = c - a: 6 subtracts).
-RECORD_BYTES2 = 128
-OPS_PER_POP2 = 2 * 25
-OPS_PER_LEAF_TEST2 = OPS_PER_LEAF_TEST + 6
 
 MAX_FLOAT = np.float32(3.4028234663852886e38)
 
@@ -79,33 +73,6 @@ def np_hits(h) -> SimpleNamespace:
     return SimpleNamespace(
         **{k: getattr(h, k).detach().cpu().numpy() for k in ("t", "tri", "u", "v")}
     )
-
-
-class Timer:
-    """CUDA-event timing; every sample is one call, optionally after a write
-    of a buffer larger than the 50 MB L2 so the call finds the cache cold."""
-
-    def __init__(self):
-        self.flush_buf = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
-
-    def samples(self, fn, iters: int, warmup: int = 1, cold: bool = False):
-        for _ in range(warmup):
-            fn()
-        out = []
-        for _ in range(iters):
-            if cold:
-                self.flush_buf.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            out.append(start.elapsed_time(end))
-        return out
-
-    def median_ms(self, fn, iters: int = 5, warmup: int = 1, cold: bool = False) -> float:
-        return float(np.median(self.samples(fn, iters, warmup, cold)))
 
 
 def profile_frames(fn, frame_ms: float, frames: int = 3) -> dict:
@@ -173,28 +140,6 @@ def compare_kernel_with_plain(name, module, parity, table, o, d,
     stats["max_abs_err"] = max(stats["max_abs_dt"], stats["max_abs_duv"])
     stats["case"] = name
     return stats, got, want
-
-
-def roofline_ms(n_rays, has_t_init, has_thresh, records_visited, pops, leaf_tests,
-                record_bytes=256, ops_per_pop=OPS_PER_POP,
-                ops_per_leaf_test=OPS_PER_LEAF_TEST):
-    """Least time the card could take for this run's traversal: every input
-    read once (rays, the distinct records any ray popped), every output
-    written once, against this run's float32 operations."""
-    in_bytes = (n_rays * (24 + 4 * has_t_init + 4 * has_thresh)
-                + records_visited * record_bytes)
-    out_bytes = n_rays * 16
-    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
-    ops = pops * ops_per_pop + leaf_tests * ops_per_leaf_test
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
-    return {
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes_ms": t_bytes,
-        "operations_ms": t_ops,
-        "min_bytes": in_bytes + out_bytes,
-        "operations": ops,
-    }
 
 
 def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -718,12 +663,317 @@ def run_dynamic_path(rt, timer, scene, bvh, cam, tex, bg, W, H, main_image):
     }
 
 
+def run_probe_slice(smi, timer):
+    """The measurement path: the probe kernels P1 and P2 of
+    ``csrc/kernel_probe.cu`` against their plain versions at a small count,
+    then the entry point's ``main`` at ``--iters 20000`` with the launch
+    counts set to 0 just before and read just after.  Emits the phases
+    ``probe_vs_plain`` and ``probe_path`` and returns the two entries of the
+    ``kernels`` line."""
+    from unitysimpleraytracing_tpu_torch.benchmarks import kernel_probe as kp
+
+    P1, P2 = kp.probe_kernel, kp.dma_probe_kernel
+    seed, small = 0, 256
+    tab = kp.make_table(seed)
+
+    # ---- probe_vs_plain -----------------------------------------------------
+    cases, err = [], {"p1": 0.0, "p2": 0.0}
+    for name in kp.P1_VARIANTS:
+        got = P1(name, tab, small)
+        torch.cuda.synchronize()
+        want = kp.run_probe_plain(name, tab, small)
+        assert torch.equal(got, want), f"P1 {name}: kernel {float(got)} != plain {float(want)}"
+        err["p1"] = max(err["p1"], max_abs_diff(got, want))
+        cases.append({"probe": name, "iters": small, "value": float(got), "bit_identical": True})
+    for name, (depth, rpr) in kp.P2_VARIANTS.items():
+        # The timed (chain-neutral) table and one whose data does steer the chain.
+        for neutral in (True, False):
+            table = kp.make_dma_table(seed, kp.L2_ROWS, rpr, chain_neutral=neutral)
+            rounds = small // depth
+            got = P2(table, depth, rpr, rounds)
+            torch.cuda.synchronize()
+            want = kp.run_dma_probe_plain(table, depth, rpr, rounds)
+            assert torch.equal(got, want), f"P2 {name}: kernel {float(got)} != plain {float(want)}"
+            err["p2"] = max(err["p2"], max_abs_diff(got, want))
+            cases.append({"probe": name, "rounds": rounds, "depth": depth,
+                          "data_steers_the_chain": not neutral, "value": float(got),
+                          "bit_identical": True})
+        del table
+    # P2 at the path's other shape: a table five times the L2, one per row width.
+    rows_devmem = 2000
+    for rpr in sorted({rpr for _, rpr in kp.P2_VARIANTS.values()}):
+        table = kp.make_dma_table(seed, kp.DEVMEM_ROWS, rpr)
+        for name, (depth, name_rpr) in kp.P2_VARIANTS.items():
+            if name_rpr != rpr:
+                continue
+            rounds = rows_devmem // depth
+            got = P2(table, depth, rpr, rounds)
+            torch.cuda.synchronize()
+            want = kp.run_dma_probe_plain(table, depth, rpr, rounds)
+            assert torch.equal(got, want), (
+                f"P2 {name}_devmem: kernel {float(got)} != plain {float(want)}")
+            err["p2"] = max(err["p2"], max_abs_diff(got, want))
+            cases.append({"probe": name + "_devmem", "rounds": rounds, "depth": depth,
+                          "table_rows": int(table.shape[0]), "value": float(got),
+                          "bit_identical": True})
+        del table
+    emit("probe_vs_plain",
+         tolerance="bit-identical: integer-valued float32 tables, every sum below 2^24, "
+                   "-fmad=false",
+         cases=cases, max_abs_err=err, nvidia_smi=smi)
+
+    # ---- probe_path: the entry point, counts 0 just before, read just after --
+    iters = 20000
+    P1.launches = P2.launches = 0
+    lines = kp.main(["--iters", str(iters), "--seed", str(seed)])
+    torch.cuda.synchronize()
+    launches = {"kernel_probe_p1": P1.launches, "kernel_probe_p2": P2.launches}
+    per_probe = 1 + 2 * kp.SLOPE_REPS  # a warm-up, then SLOPE_REPS pairs (N, 4N)
+    assert launches == {"kernel_probe_p1": len(kp.P1_VARIANTS) * per_probe,
+                        "kernel_probe_p2": 2 * len(kp.P2_VARIANTS) * per_probe}, launches
+    by_name = {ln["probe"]: ln for ln in lines}
+    assert set(kp.P1_VARIANTS) <= set(by_name)
+    assert all(n in by_name and n + "_devmem" in by_name for n in kp.P2_VARIANTS)
+    for ln in lines:
+        assert np.isfinite(ln["value"]) and ln.get("ns_per_iter", ln.get("ns_per_row")) > 0, ln
+    # A probe's output is a closed form where its loop has one.
+    assert by_name["empty"]["value"] == iters
+    assert by_name["reduce_sum_8x128"]["value"] == 1024.0 * iters
+    rows = torch.from_numpy((np.arange(iters) * 37 + 11) & 4095).cuda()
+    # 32 fetches = each of a row's 16 columns twice.
+    assert by_name["fetch_x32"]["value"] == 2.0 * float(tab.sum(1)[rows].double().sum())
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    emit("probe_path", iters=iters, seed=seed,
+         ns_per_iter={n: by_name[n]["ns_per_iter"] for n in kp.P1_VARIANTS},
+         ns_per_row_l2_resident={n: by_name[n]["ns_per_row"] for n in kp.P2_VARIANTS},
+         ns_per_row_device_memory={n: by_name[n + "_devmem"]["ns_per_row"]
+                                   for n in kp.P2_VARIANTS},
+         values={n: ln["value"] for n, ln in by_name.items()},
+         launches_on_the_path=launches,
+         timing=lines[0]["timing"], clocks_max_sm_and_now=clocks, nvidia_smi=smi)
+
+    # ---- the two entries of the kernels line ---------------------------------
+    # Each probe kernel at one shape of the path, as the path launches it
+    # (warm: one block or one warp on a table that is already in the caches),
+    # timed beside its plain version and held against it at that count too.
+    def entry(name, probe, replaces, fn, plain, shape, min_bytes, ops):
+        kept = {}
+        ms = timer.median_ms(lambda: kept.update(kernel=fn()), iters=5)
+        plain_ms = timer.median_ms(lambda: kept.update(plain=plain()), iters=1, warmup=0)
+        assert torch.equal(kept["kernel"], kept["plain"]), (
+            f"{name} {probe} at the path's count: kernel {float(kept['kernel'])} != "
+            f"plain {float(kept['plain'])}")
+        key = "p1" if name.endswith("p1") else "p2"
+        err[key] = max(err[key], max_abs_diff(kept["kernel"], kept["plain"]))
+        t_bytes = min_bytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+        return {
+            "name": name, "route": "cuda",
+            "source": "unitysimpleraytracing_tpu_torch/csrc/kernel_probe.cu",
+            "replaces": replaces, "probe": probe, "launches": launches[name],
+            "max_abs_err": err[key],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "shape": shape,
+            # A probe is a serial chain by definition: its least time is its
+            # dependent operations times their latency, not this roofline.
+            "serial_by_definition": True,
+        }
+
+    table = kp.make_dma_table(seed, kp.L2_ROWS, 1)
+    rounds = kp.dma_rounds(iters, 1)
+    return [
+        entry("kernel_probe_p1", "fetch_x32",
+              "benchmarks/kernel_probe.py:36",
+              lambda: P1("fetch_x32", tab, iters),
+              lambda: kp.run_probe_plain("fetch_x32", tab, iters),
+              f"{iters} iterations x 32 fetches over a (4096, 16) float32 table -> 1 float32",
+              tab.numel() * 4 + 4, 32 * iters),
+        entry("kernel_probe_p2", "dma_row512_serial",
+              "benchmarks/kernel_probe.py:133",
+              lambda: P2(table, 1, 1, rounds),
+              lambda: kp.run_dma_probe_plain(table, 1, 1, rounds),
+              f"{rounds} rounds x 1 row of 512 bytes from a ({kp.L2_ROWS}, 128) float32 "
+              "table -> 1 float32",
+              rounds * 512 + 4, rounds),
+    ]
+
+
+def run_sah_path(rt, timer, smi, tex, bg, W, H, profile):
+    """The default build at full width: ``build_bvh(scene)`` with no
+    ``builder`` (free-order sweep SAH), ``"sah"`` and ``"karras"`` on the
+    260,642-triangle scene, the frame and both traversal kernels on each tree,
+    ``validate=True`` on the default tree, one ``"sah"`` build of 1,048,352
+    triangles.  The drive comes first, with the launch counts set to 0 just
+    before and read just after.  Emits the phase ``sah_path``."""
+    from unitysimpleraytracing_tpu_torch import constants as C
+    from unitysimpleraytracing_tpu_torch.core.camera import generate_rays
+    from unitysimpleraytracing_tpu_torch.ops import dispatch, lbvh, trace_bvh2, trace_bvh4
+    from unitysimpleraytracing_tpu_torch.utils import parity
+
+    K1, K2 = trace_bvh4.traverse_bvh4, trace_bvh2.traverse_bvh2
+    scene = rt.build_scene(rt.terrain_mesh(res=362, size=160.0, amplitude=20.0, seed=1))
+    assert scene.count == 260642
+    cam = rt.make_camera(eye=(110.0, 90.0, 140.0), target=(0.0, 0.0, 0.0), width=W, height=H)
+    n_rays = W * H
+
+    # -- the drive: counts 0 just before, read just after -----------------------
+    K1.launches = K2.launches = 0
+    default = rt.build_bvh(scene)
+    frames = {None: rt.render_frame(scene, default, cam, tex, bg, shadows=True)}
+    frame_cuda2 = rt.render_frame(scene, default, cam, tex, bg, impl="cuda2", shadows=True)
+    torch.cuda.synchronize()
+    launches = {"trace_bvh4": K1.launches, "trace_bvh2": K2.launches}
+    assert launches == {"trace_bvh4": 2, "trace_bvh2": 2}, launches
+
+    trees = {None: default}
+    for builder in ("sah", "karras"):
+        trees[builder] = rt.build_bvh(scene, builder=builder)
+        frames[builder] = rt.render_frame(scene, trees[builder], cam, tex, bg, shadows=True)
+    bvh_bits_equal(parity, rt.build_bvh(scene, builder="sah_free"), default,
+                   "builder=None vs builder='sah_free'")
+
+    def label(builder):
+        return "default (sah_free)" if builder is None else builder
+
+    # -- what each tree is ---------------------------------------------------------
+    def sah_cost(bvh):
+        n = bvh.count
+        e = (bvh.node_aabb_max - bvh.node_aabb_min)[: n - 1].double()
+        area = e[:, 0] * e[:, 1] + e[:, 1] * e[:, 2] + e[:, 2] * e[:, 0]
+        return float(area.sum() / area[0])
+
+    def max_depth(bvh):
+        return int(lbvh.attach_diagnostics(bvh).depth.max())
+
+    shape = {}
+    for builder, bvh in trees.items():
+        depth = max_depth(bvh)
+        # K2 pushes at most one entry more than it pops per level of internal
+        # nodes, K1 at most three per BVH4 level (two binary levels): a walk
+        # cannot need more stack than this, whatever the rays.
+        shape[label(builder)] = {
+            # A SAH build loop takes one iteration (one read-back) per tree level.
+            "levels_of_the_build_loop": 0 if builder == "karras" else depth + 1,
+            "max_depth": depth,
+            "sah_cost": sah_cost(bvh),
+            "stack_entries_k2_can_need": depth + 1,
+            "stack_entries_k1_can_need": 3 * (depth // 2 + 1) + 1,
+            "stack_entries_of_both_kernels": C.TRAVERSAL_STACK_DEPTH,
+        }
+        if depth + 1 > C.TRAVERSAL_STACK_DEPTH:
+            raise dispatch.CapacityError(
+                f"the {label(builder)} tree is {depth} levels deep: more than the "
+                f"{C.TRAVERSAL_STACK_DEPTH}-entry stacks of the traversal kernels can hold")
+
+    # -- validate=True on the default tree -------------------------------------------
+    t0 = time.perf_counter()
+    validated = rt.build_bvh(scene, validate=True)
+    torch.cuda.synchronize()
+    validate_s = time.perf_counter() - t0
+    bvh_bits_equal(parity, validated, rt.build_bvh(scene, diagnostics=True),
+                   "validate=True vs diagnostics=True, default builder")
+    del validated
+
+    # -- frames and hits under the parity contract -------------------------------------
+    hits = {b: rt.render_hits(scene, bvh, cam) for b, bvh in trees.items()}
+    contract = {}
+    for builder in (None, "sah"):
+        st = parity.assert_hit_parity(np_hits(hits[builder]), np_hits(hits["karras"]))
+        st["image_fraction_off_by_more_than_2_of_255"] = parity.compare_images(
+            parity.frame_to_uint8(rt.frame_to_image(frames[builder])),
+            parity.frame_to_uint8(rt.frame_to_image(frames["karras"])),
+            f"{label(builder)} frame vs karras frame")
+        st["frame_values_differing"] = int((frames[builder] != frames["karras"]).sum())
+        contract[f"{label(builder)} vs karras"] = st
+    contract["default tree, cuda2 frame vs cuda4 frame: values differing"] = int(
+        (frame_cuda2 != frames[None]).sum())
+    del frame_cuda2
+
+    # -- both kernels on each tree: against plain on the default tree, then timed ------
+    o, d = generate_rays(cam)
+    o = dispatch._tile_major(o, H, W, 32).contiguous()
+    d = dispatch._tile_major(d, H, W, 32).contiguous()
+    tables = {b: (trace_bvh4.prepare_tables4(scene, bvh), trace_bvh2.prepare_tables(scene, bvh))
+              for b, bvh in trees.items()}
+    vs_plain = {}
+    for module, table in ((trace_bvh4, tables[None][0]), (trace_bvh2, tables[None][1])):
+        st, _, _ = compare_kernel_with_plain(
+            f"{module.KERNEL_NAME}: primary rays over the default tree", module, parity,
+            table, o, d)
+        vs_plain[module.KERNEL_NAME] = st
+    kernels = {label(b): {} for b in trees}
+    for b, (t4, t2) in tables.items():
+        for name, fn, table in (("trace_bvh4", K1, t4), ("trace_bvh2", K2, t2)):
+            _, steps = fn(table, o, d, count_steps=True)
+            kernels[label(b)][name] = {
+                "records": int(table.shape[0]),
+                "records_per_ray": int(steps.sum()) / n_rays, "max_pops": int(steps.max())}
+    order = (None, "sah", "karras", "karras", "sah", None)
+    kernel_turns = {"trace_bvh4": [], "trace_bvh2": []}
+    for b in order:
+        t4, t2 = tables[b]
+        kernel_turns["trace_bvh4"].append(
+            [label(b), timer.median_ms(lambda: K1(t4, o, d), iters=7, cold=True)])
+        kernel_turns["trace_bvh2"].append(
+            [label(b), timer.median_ms(lambda: K2(t2, o, d), iters=7, cold=True)])
+    frame_turns = [
+        [label(b), timer.median_ms(
+            lambda: rt.render_frame(scene, trees[b], cam, tex, bg, shadows=True), iters=5)]
+        for b in order]
+    del tables, hits, frames, o, d
+
+    # -- the builds in turns -------------------------------------------------------------
+    build_turns = [
+        [label(b), timer.median_ms(lambda: rt.build_bvh(scene, builder=b), iters=3)]
+        for b in order]
+    torch.cuda.reset_peak_memory_stats()
+    rt.build_bvh(scene)
+    build_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    profiled = None
+    if profile:
+        profiled = profile_frames(lambda: rt.build_bvh(scene), build_turns[0][1], frames=1)
+    del trees, default, scene
+
+    # -- one "sah" build of the 1,048,352-triangle scene -----------------------------------
+    scene_1m = rt.build_scene(rt.terrain_mesh(res=725, size=300.0, amplitude=30.0, seed=0))
+    assert scene_1m.count == 1048352
+    bvh_1m = rt.build_bvh(scene_1m, builder="sah")
+    depth_1m = max_depth(bvh_1m)
+    one_m = {"triangles": scene_1m.count, "builder": "sah",
+             "levels_of_the_build_loop": depth_1m + 1, "max_depth": depth_1m,
+             "sah_cost": sah_cost(bvh_1m),
+             "build_ms": timer.median_ms(lambda: rt.build_bvh(scene_1m, builder="sah"), iters=2)}
+    cam_1m = rt.make_camera(eye=(210.0, 170.0, 260.0), target=(0.0, 0.0, 0.0),
+                            width=512, height=512)
+    one_m["hits_vs_karras_tree"] = parity.assert_hit_parity(
+        np_hits(rt.render_hits(scene_1m, bvh_1m, cam_1m)),
+        np_hits(rt.render_hits(scene_1m, rt.build_bvh(scene_1m, builder="karras"), cam_1m)))
+
+    emit("sah_path", triangles=260642, width=W, height=H,
+         default_builder_is_sah_free_bit_for_bit=True,
+         launches_on_the_path=launches, trees=shape,
+         build_ms_in_turns=build_turns, build_peak_gb=build_peak_gb,
+         validate_true_seconds_default_tree=validate_s,
+         parity_contract=contract, kernels_vs_plain_on_the_default_tree=vs_plain,
+         kernels_per_tree=kernels, kernel_ms_in_turns_cold_l2=kernel_turns,
+         frame_ms_with_shadows_in_turns=frame_turns, one_sah_build_at_1m=one_m,
+         **({"profile_of_one_default_build": profiled} if profiled else {}),
+         timing="CUDA events; builds median of 3 (2 at 1,048,352), kernels median of 7 "
+                "cold L2, frames median of 5, each after a warm-up",
+         nvidia_smi=smi)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(HERE, "build", "chip_smoke"),
                     help="directory for the rendered PNG")
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler pass and the gather-form A/B")
+                    help="add the torch.profiler passes and the gather-form A/B")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script runs on the card only",
@@ -732,6 +982,7 @@ def main() -> int:
     t_script = time.perf_counter()
 
     import unitysimpleraytracing_tpu_torch as rt
+    from unitysimpleraytracing_tpu_torch.benchmarks import kernel_probe
     from unitysimpleraytracing_tpu_torch.core.camera import generate_rays
     from unitysimpleraytracing_tpu_torch.io.png import read_png, write_png
     from unitysimpleraytracing_tpu_torch.ops import (
@@ -757,7 +1008,7 @@ def main() -> int:
     # ---- 2. build_kernels ------------------------------------------------
     t0 = time.perf_counter()
     kernel_names = (trace_bvh4.KERNEL_NAME, trace_bvh2.KERNEL_NAME,
-                    sort_radix_cuda.KERNEL_NAME, scan.KERNEL_NAME)
+                    sort_radix_cuda.KERNEL_NAME, scan.KERNEL_NAME, kernel_probe.KERNEL_NAME)
     started = {name: kernel_build.start_build(name) for name in kernel_names}
     for name, st in started.items():
         kernel_build.finish_build(name, st)
@@ -765,6 +1016,7 @@ def main() -> int:
     trace_bvh2._load_kernel()
     sort_radix_cuda._load_kernel()
     scan._load_kernel()
+    kernel_probe._load_kernel()
     emit("build_kernels", seconds=time.perf_counter() - t0,
          libraries={n: os.path.relpath(kernel_build.library_path(n), HERE)
                     for n in kernel_names},
@@ -811,14 +1063,14 @@ def main() -> int:
          cuda2_vs_cuda4_case_a=st24, nvidia_smi=smi)
     del first2, first4, g2, g4
 
-    # The shared-stack packet engine against the per-ray oracle: a 128x128
-    # frame of the same scene, 16 packets of 1024 rays in lockstep.  A host
+    # The shared-stack packet engine against the per-ray oracle: a 64x64
+    # frame of the same scene, 4 packets of 1024 rays in lockstep.  A host
     # loop of eager launches; its time is written down, not judged.
-    cam128 = rt.make_camera(eye=(55.0, 45.0, 70.0), target=(0.0, 0.0, 0.0),
-                            width=128, height=128)
-    po, pd = generate_rays(cam128)
-    po = dispatch._tile_major(po, 128, 128, 32).contiguous()
-    pd = dispatch._tile_major(pd, 128, 128, 32).contiguous()
+    cam64 = rt.make_camera(eye=(55.0, 45.0, 70.0), target=(0.0, 0.0, 0.0),
+                           width=64, height=64)
+    po, pd = generate_rays(cam64)
+    po = dispatch._tile_major(po, 64, 64, 32).contiguous()
+    pd = dispatch._tile_major(pd, 64, 64, 32).contiguous()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = dispatch.trace_rays(s65.scene, s65.bvh, po, pd, impl="packet")
@@ -1055,7 +1307,7 @@ def main() -> int:
     dyn_launches, dynamic = run_dynamic_path(
         rt, timer, scene, bvh, cam, tex, bg, W, H, main_image)
     emit("dynamic_path", triangles=mesh.num_triangles, width=W, height=H,
-         packet_vs_perray_65k_128x128=packet_check, nvidia_smi=smi, **dynamic)
+         packet_vs_perray_65k_64x64=packet_check, nvidia_smi=smi, **dynamic)
     records2_260k = int(table2.shape[0])
     del table2
     del scene, bvh, table, hits, rgba, frame, shadow, o, d, bo, bd, so, sd, got, want
@@ -1124,7 +1376,13 @@ def main() -> int:
     del scene, bvh, cam, f
     sort_entries = run_sort_slice(rt, timer, smi, main_image, tex, bg, W, H)
 
-    # ---- 8. kernels ------------------------------------------------------
+    # ---- 8. the measurement path (probe kernels P1, P2) --------------------
+    probe_entries = run_probe_slice(smi, timer)
+
+    # ---- 9. the default build (SAH builders) at full width ------------------
+    run_sah_path(rt, timer, smi, tex, bg, W, H, args.profile)
+
+    # ---- 10. kernels ------------------------------------------------------
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "trace_bvh4",
@@ -1162,7 +1420,7 @@ def main() -> int:
         "bound_ms_shadow": roof2_s["bound_ms"],
         "library_ms": None,
         "shape": f"{n_rays} rays over a ({records2_260k}, 32) float32 table",
-    }, *sort_entries]}), flush=True)
+    }, *sort_entries, *probe_entries]}), flush=True)
     emit("done", seconds=time.perf_counter() - t_script)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

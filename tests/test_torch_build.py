@@ -161,13 +161,6 @@ def test_bvh_carried_across_round_trips():
     assert_fields_same_bits(back, js)
 
 
-@pytest.mark.parametrize("builder", [None, "sah", "sah_free"])
-def test_unported_builders_raise(builder):
-    _, ps = both_scenes("cube")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.build_bvh(ps, builder=builder)
-
-
 def test_validate_and_tiny_scenes_raise():
     _, ps = both_scenes("cube")
     # validate=True is ported: it returns the diagnostics build.

@@ -57,8 +57,8 @@ def test_sources_name_no_jax_import():
             s = line.strip()
             if s.startswith(("import ", "from ")):
                 mod = s.split()[1].split(".")[0]
-                assert mod not in ("jax", "jaxlib", "flax", "unitysimpleraytracing_tpu"), (
-                    path, s)
+                assert mod not in ("jax", "jaxlib", "flax", "unitysimpleraytracing_tpu",
+                                   "benchmarks", "bench"), (path, s)
 
 
 def test_default_device_is_the_card_and_raises_without_one():
@@ -197,7 +197,8 @@ def test_port_calls_no_library_stand_in_for_a_kernel():
             assert banned not in src, (fn.__name__, banned)
 
 
-@pytest.mark.parametrize("module", ["ops.trace_packet", "ops.trace_bvh2"])
+@pytest.mark.parametrize("module", ["ops.trace_packet", "ops.trace_bvh2", "ops.sah",
+                                    "utils.profiling", "benchmarks.kernel_probe"])
 def test_new_traversal_modules_import_no_jax(module):
     code = (
         "import sys, importlib\n"
@@ -267,7 +268,85 @@ def test_kernel2_source_is_listed_for_the_build_and_build_stays_ignored():
     # chip_smoke.py builds it with the others, all started together.
     smoke = open(os.path.join(ROOT, "chip_smoke.py"), encoding="utf-8").read()
     names = smoke[smoke.index("kernel_names = ("):smoke.index("started = {")]
-    for mod in ("trace_bvh4", "trace_bvh2", "sort_radix_cuda", "scan"):
+    for mod in ("trace_bvh4", "trace_bvh2", "sort_radix_cuda", "scan", "kernel_probe"):
         assert f"{mod}.KERNEL_NAME" in names
     ignored = [ln.strip() for ln in open(os.path.join(ROOT, ".gitignore"), encoding="utf-8")]
     assert "build/" in ignored
+
+
+# ---- the probes P1, P2 and the measurement path ---------------------------------
+
+
+def test_probe_wrappers_on_cpu_take_plain_versions_and_count_no_launch():
+    from unitysimpleraytracing_tpu_torch.benchmarks import kernel_probe as kp
+
+    tab = kp.make_table(seed=0, device="cpu")
+    for name in ("empty", "fetch_x8", "reduce_sum_x2", "dep_fetch_l2_row64"):
+        assert torch.equal(kp.probe_kernel(name, tab, 50), kp.run_probe_plain(name, tab, 50))
+    table = kp.make_dma_table(seed=0, rows=128, rows_per_rec=4, device="cpu")
+    assert torch.equal(kp.dma_probe_kernel(table, 8, 4, 10),
+                       kp.run_dma_probe_plain(table, 8, 4, 10))
+    kp.main(["--iters", "20", "--device", "cpu"])
+    assert kp.probe_kernel.launches == 0 and kp.dma_probe_kernel.launches == 0
+
+
+def test_probe_wrappers_on_a_cuda_tensor_have_no_path_to_the_plain_versions():
+    """Each wrapper names its plain version once, under the test that the
+    table lies on the CPU; past it the kernel is launched or the call raises,
+    with no ``try`` that could swallow a failed build or launch."""
+    import inspect
+
+    from unitysimpleraytracing_tpu_torch.benchmarks import kernel_probe as kp
+
+    for wrapper, plain, arg in ((kp.probe_kernel, "run_probe_plain", "tab"),
+                                (kp.dma_probe_kernel, "run_dma_probe_plain", "table")):
+        src = inspect.getsource(wrapper)
+        body = src[src.index('"""', src.index('"""') + 3) + 3:]  # past the docstring
+        assert body.count(plain) == 1, wrapper.__name__
+        cpu_branch = body.index(f'if {arg}.device.type == "cpu":')
+        assert cpu_branch < body.index(plain) < body.index("_load_kernel()")
+        assert body.index("err = launch(") < body.index("raise RuntimeError") \
+            < body.index(".launches += 1")
+        assert f'if {arg}.device.type != "cuda":' in body
+        for banned in ("try:", "except", "compile", "torch.jit", "cumsum", "index_select"):
+            assert banned not in body, banned
+    # The measuring functions go through the wrappers, never around them.
+    for fn in (kp.run_probe, kp.run_dma_probe, kp.main):
+        assert "_plain" not in inspect.getsource(fn)
+
+
+def test_probe_kernel_source_is_listed_for_the_build():
+    from unitysimpleraytracing_tpu_torch.benchmarks import kernel_probe as kp
+    from unitysimpleraytracing_tpu_torch.utils import kernel_build
+
+    assert kp.KERNEL_NAME == "kernel_probe"
+    text = open(os.path.join(kernel_build.CSRC_DIR, "kernel_probe.cu"), encoding="utf-8").read()
+    assert "__global__" in text and "cudaGetLastError" in text
+    for fn in ("kernel_probe_p1_launch", "kernel_probe_p2_launch"):
+        assert f'extern "C" int {fn}' in text
+    for needs in ("cp.async.cg.shared.global", "cp.async.commit_group", "cp.async.wait_group",
+                  "__shfl_xor_sync", "__ldcg", "1103515245u"):
+        assert needs in text, needs
+    for banned in ("cub::", "thrust::", "#include <torch", "#include <ATen"):
+        assert banned not in text
+    assert os.path.dirname(kernel_build.library_path("kernel_probe")) == os.path.join(ROOT, "build")
+    # Every variant the wrapper can ask for has a case in the kernel's switch.
+    for code in sorted({c for c, _, _ in kp.P1_VARIANTS.values()}):
+        assert f"= {code}," in text
+    smoke = open(os.path.join(ROOT, "chip_smoke.py"), encoding="utf-8").read()
+    for phase in ('"probe_vs_plain"', '"probe_path"', '"sah_path"'):
+        assert f"emit({phase}" in smoke
+    assert '"kernel_probe_p1"' in smoke and '"kernel_probe_p2"' in smoke
+
+
+def test_build_bvh_default_needs_no_builder_and_launches_nothing_on_cpu():
+    scene = pt.build_scene(pt.terrain_mesh(res=12, size=10.0, amplitude=2.0, seed=0), device="cpu")
+    bvh = pt.build_bvh(scene)
+    again = pt.build_bvh(scene, builder="sah_free")
+    assert torch.equal(bvh.sorted_tri, again.sorted_tri) and torch.equal(bvh.left, again.left)
+    frame = pt.render_frame(
+        scene, bvh, pt.make_camera(eye=(8, 6, 9), target=(0, 0, 0), width=32, height=32,
+                                   device="cpu"),
+        pt.solid_texture(device="cpu"), np.zeros(3, np.float32), shadows=True)
+    assert bool(torch.isfinite(frame).all())
+    assert pt4.traverse_bvh4.launches == 0 and pt2.traverse_bvh2.launches == 0

@@ -289,3 +289,112 @@ def test_animated_renderer_on_the_card_equals_unfused(card, impl):
         for f in ("t", "tri", "u", "v"):
             assert torch.equal(getattr(got, f), getattr(ref, f)), f
         assert bool(got.hit.any())
+
+
+# ---- P1, P2: the probe kernels, and the SAH trees on the card ------------------
+# Tolerance: bit-identical (integer-valued float32 tables, every sum below
+# 2^24; vector_40ops is the same float32 operations, -fmad=false).
+
+
+def _probe():
+    from unitysimpleraytracing_tpu_torch.benchmarks import kernel_probe
+
+    return kernel_probe
+
+
+@pytest.mark.parametrize("iters", [0, 1, 333])
+def test_probe_p1_bit_identical_to_plain(card, iters):
+    kp = _probe()
+    tab = kp.make_table(seed=4)
+    for name in kp.P1_VARIANTS:
+        before = kp.probe_kernel.launches
+        got = kp.probe_kernel(name, tab, iters)
+        torch.cuda.synchronize()
+        assert kp.probe_kernel.launches == before + 1
+        assert torch.equal(got, kp.run_probe_plain(name, tab, iters)), name
+
+
+@pytest.mark.parametrize("neutral", [True, False])
+@pytest.mark.parametrize("rows", [1 << 10, 1 << 15])
+def test_probe_p2_bit_identical_to_plain(card, rows, neutral):
+    kp = _probe()
+    for depth, rpr in kp.P2_VARIANTS.values():
+        table = kp.make_dma_table(seed=3, rows=rows, rows_per_rec=rpr, chain_neutral=neutral)
+        before = kp.dma_probe_kernel.launches
+        got = kp.dma_probe_kernel(table, depth, rpr, 96 // depth)
+        torch.cuda.synchronize()
+        assert kp.dma_probe_kernel.launches == before + 1
+        assert torch.equal(got, kp.run_dma_probe_plain(table, depth, rpr, 96 // depth))
+    with pytest.raises(ValueError, match="contiguous float32"):
+        kp.dma_probe_kernel(table.double(), 1, 1, 4)
+
+
+def test_probe_entry_point_on_the_card(card, capsys):
+    import json
+
+    kp = _probe()
+    kp.probe_kernel.launches = kp.dma_probe_kernel.launches = 0
+    lines = kp.main(["--iters", "2000"])
+    printed = [json.loads(ln) for ln in capsys.readouterr().out.strip().splitlines()]
+    assert printed == lines
+    names = [ln["probe"] for ln in lines]
+    assert names[:len(kp.P1_VARIANTS)] == list(kp.P1_VARIANTS)
+    assert all(n in names and n + "_devmem" in names for n in kp.P2_VARIANTS)
+    assert kp.probe_kernel.launches > 0 and kp.dma_probe_kernel.launches > 0
+    assert all(ln["device"] == torch.cuda.get_device_name(0) for ln in lines)
+    by = {ln["probe"]: ln for ln in lines}
+    assert by["empty"]["value"] == 2000.0 and by["reduce_sum_8x128"]["value"] == 2048000.0
+    # A dependent fetch past L1 costs more than one through it.
+    assert by["dep_fetch_l2_x1"]["ns_per_iter"] > by["dep_fetch_l1_x1"]["ns_per_iter"]
+
+
+@pytest.mark.parametrize("builder", [None, "sah", "sah_free"])
+def test_sah_trees_on_the_card(card, builder):
+    """Built on the card: bit-identical to the CPU build; both kernels
+    bit-identical to their plain versions on it; the frame under the parity
+    contract against the Karras tree's."""
+    import dataclasses
+
+    mesh = pt.terrain_mesh(res=64, size=20.0, amplitude=4.0, seed=0)
+    scene = pt.build_scene(mesh)
+    bvh = pt.build_bvh(scene, builder=builder, diagnostics=True)
+    on_cpu = pt.build_bvh(pt.build_scene(mesh, device="cpu"), builder=builder, diagnostics=True)
+    for f in dataclasses.fields(bvh):
+        g = getattr(bvh, f.name)
+        if isinstance(g, torch.Tensor):
+            assert torch.equal(g.cpu(), getattr(on_cpu, f.name)), f.name
+    pt.build_bvh(scene, builder=builder, validate=True)
+    o, d = _rays(10000, seed=3, bound=8.0, dev=card)
+    for module, prepare in ((trace_bvh4, trace_bvh4.prepare_tables4),
+                            (trace_bvh2, trace_bvh2.prepare_tables)):
+        table = prepare(scene, bvh)
+        kernel = module.traverse_bvh4 if module is trace_bvh4 else module.traverse_bvh2
+        plain = module.traverse_bvh4_plain if module is trace_bvh4 else module.traverse_bvh2_plain
+        assert_hit_parity(_np(kernel(table, o, d)), _np(plain(table, o, d)), exact=True)
+    cam = pt.make_camera(eye=(15, 12, 18), target=(0, 0, 0), width=128, height=96)
+    karras = pt.build_bvh(scene, builder="karras")
+    assert_hit_parity(_np(pt.render_hits(scene, bvh, cam)), _np(pt.render_hits(scene, karras, cam)))
+    tex = pt.solid_texture((0.8, 0.7, 0.6, 1.0))
+    bg = np.asarray([0.1, 0.1, 0.12], np.float32)
+    from unitysimpleraytracing_tpu_torch.utils.parity import compare_images, frame_to_uint8
+
+    compare_images(
+        frame_to_uint8(pt.frame_to_image(pt.render_frame(scene, bvh, cam, tex, bg, shadows=True))),
+        frame_to_uint8(pt.frame_to_image(pt.render_frame(scene, karras, cam, tex, bg, shadows=True))),
+        "SAH frame vs Karras frame")
+
+
+def test_profiling_times_on_the_card(card):
+    from unitysimpleraytracing_tpu_torch.utils import profiling
+
+    x = torch.randn(1 << 22, device=card)
+    s = profiling.measure(lambda: x * 2.0, iters=3, warmup=1, reps=4)
+    assert 1e-6 < s < 1e-2
+    got = profiling.measure_interleaved({"a": lambda: x * 2.0, "b": lambda: x + x}, iters=2)
+    assert set(got) == {"a", "b"} and all(v[1] <= v[0] for v in got.values())
+    prof = profiling.Profiler()
+    with prof.op("mul", bytes_accessed=2 * x.numel() * 4):
+        prof.sync(x * 2.0)
+    assert 0 < prof.stats[0].roofline_fraction() < 1.5
+    timer = profiling.Timer()
+    assert timer.median_ms(lambda: x * 2.0, cold=True) > 0

@@ -70,7 +70,7 @@ def test_registry_lists_what_the_port_runs():
     assert registry.engines("scan") == ["cuda", "torch"]
     assert registry.engines("traverse") == [
         "cuda2", "cuda4", "packet", "perray", "plain2", "plain4"]
-    assert registry.engines("topology") == ["karras"]
+    assert registry.engines("topology") == ["karras", "sah"]
     with pytest.raises(KeyError, match="available"):
         registry.get("sort", "nope")
 

@@ -1,0 +1,1 @@
+"""Measuring entry points of the port (run as ``python -m ...benchmarks.<name>``)."""

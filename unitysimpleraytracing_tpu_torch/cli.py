@@ -86,10 +86,11 @@ def main(argv=None) -> None:
         "along normals (a pure function of position)",
     )
     ap.add_argument(
-        "--builder", default="karras", choices=["karras", "sah", "sah_free"],
-        help="BVH topology; default 'karras' (the reference's radix tree, "
-        "BVH.compute:94-149), the only builder ported so far — the SAH "
-        "builders exit with a 'not ported yet' error",
+        "--builder", default=None, choices=["karras", "sah"],
+        help="BVH topology: default = build_bvh's default (free-order "
+        "sweep SAH); 'karras' = the reference's radix tree "
+        "(BVH.compute:94-149); 'sah' = sweep SAH over the Morton order "
+        "(lower SAH cost → fewer box tests per ray; ops/sah.py)",
     )
     ap.add_argument("--shadows", action="store_true", help="shadow-ray pass")
     ap.add_argument(
@@ -111,8 +112,6 @@ def main(argv=None) -> None:
     for attr, what in _NOT_PORTED.items():
         if getattr(args, attr):
             ap.error(f"{what} is not ported yet (see ROADMAP.md, queue 1)")
-    if args.builder != "karras":
-        ap.error(f"--builder {args.builder} is not ported yet (ROADMAP.md, queue 1 item 8)")
 
     import numpy as np
     import torch

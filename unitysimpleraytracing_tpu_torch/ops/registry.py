@@ -19,7 +19,8 @@ Stages and their engines — exactly what the port runs:
                 records in plain tensor code), "cuda4" (the BVH4 kernel,
                 ops/trace_bvh4 — the production engine), "plain2" and
                 "cuda2" (binary records and their kernel, ops/trace_bvh2)
-- ``topology``: "karras" (the reference's radix tree, ops/lbvh)
+- ``topology``: "karras" (the reference's radix tree, ops/lbvh), "sah"
+                (sweep SAH over the sorted order, ops/sah)
 """
 from __future__ import annotations
 
@@ -61,6 +62,7 @@ def _register_builtins() -> None:
     """Bind the built-in engines."""
     from unitysimpleraytracing_tpu_torch.ops import (
         lbvh,
+        sah,
         scan,
         sort,
         sort_radix_cuda,
@@ -85,6 +87,7 @@ def _register_builtins() -> None:
     register("traverse", "cuda2", trace_bvh2.traverse_bvh2)
 
     register("topology", "karras", lbvh.build_bvh_from_sorted)
+    register("topology", "sah", sah.build_bvh_sah_from_sorted)
 
 
 _register_builtins()

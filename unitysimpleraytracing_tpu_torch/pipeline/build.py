@@ -14,11 +14,28 @@ import torch
 
 from unitysimpleraytracing_tpu_torch import constants as C
 from unitysimpleraytracing_tpu_torch.core.types import Bvh, Scene
-from unitysimpleraytracing_tpu_torch.ops import lbvh, sort, unique
+from unitysimpleraytracing_tpu_torch.ops import lbvh, sah, sort, unique
+
+BUILDERS = ("karras", "sah", "sah_free")
 
 
-def _build(scene: Scene, sort_impl: str, diagnostics: bool) -> Bvh:
+def _build(scene: Scene, sort_impl: str, diagnostics: bool, builder: str) -> Bvh:
     keys, sorted_tri = sort.sort_key_val(scene.morton, scene.tri_index, impl=sort_impl)
+    if builder == "sah":
+        # Sweep SAH over the Morton order (ops/sah.py): better splits, same
+        # hit contract; needs no unique keys, so distribute_keys is skipped.
+        return sah.build_bvh_sah_from_sorted(
+            sorted_tri, scene.aabb_min, scene.aabb_max, scene.count,
+            diagnostics=diagnostics,
+        )
+    if builder == "sah_free":
+        # Free-order sweep SAH (ops/sah.py): additionally re-partitions the
+        # leaves per node (one stable sort per level); the emitted
+        # permutation replaces the Morton order as sorted_tri.
+        return sah.build_bvh_sah_free(
+            sorted_tri, scene.aabb_min, scene.aabb_max, scene.count,
+            diagnostics=diagnostics,
+        )
     keys = unique.distribute_keys(keys, scene.count)
     return lbvh.build_bvh_from_sorted(
         keys, sorted_tri, scene.aabb_min, scene.aabb_max, scene.count,
@@ -42,11 +59,14 @@ def build_bvh(
     decomposition on the hand-written histogram, scan and rank kernels).  All
     three are stable, so the tree is the same bit for bit.
 
-    ``builder``: only "karras" (the reference's radix tree,
-    BVH.compute:94-149, the bit-parity surface) is ported.  The JAX
-    package's default for concrete builds is "sah_free"; ``None``, "sah" and
-    "sah_free" therefore raise ``NotImplementedError`` rather than silently
-    build a different tree than that default would (ROADMAP queue 1 item 8).
+    ``builder``: "karras" (the reference's radix tree, BVH.compute:94-149,
+    the bit-parity surface), "sah" (sweep SAH over the Morton order,
+    ops/sah.py — lower SAH cost, same hit contract) or "sah_free" (free-order
+    sweep SAH — re-partitions the leaves per node, lowest SAH cost).  The
+    default ``None`` resolves to "sah_free": that is the JAX package's rule
+    for concrete builds, and PyTorch has no traced case.  The SAH builds are
+    host loops of one level per iteration and cost far more than the Karras
+    build (PERF.md); a loop that rebuilds every frame asks for "karras".
 
     ``diagnostics`` adds the parent links + per-node depth array
     (validation only; nothing in the render path reads them).
@@ -60,19 +80,17 @@ def build_bvh(
     """
     if scene.count < 2:
         raise ValueError("LBVH needs at least 2 triangles (reference assumes the same)")
-    if builder != "karras":
-        raise NotImplementedError(
-            f"build_bvh(builder={builder!r}): only builder='karras' is ported; "
-            "the SAH builders (the JAX default for concrete builds is "
-            "'sah_free') are ROADMAP queue 1 item 8"
-        )
+    if builder is None:
+        builder = "sah_free"
+    if builder not in BUILDERS:
+        raise ValueError(f"unknown builder {builder!r}; one of {BUILDERS}")
     if not validate:
-        return _build(scene, sort_impl, diagnostics)
+        return _build(scene, sort_impl, diagnostics, builder)
 
     from unitysimpleraytracing_tpu_torch.utils import validate as V
 
     count = scene.count
-    bvh = _build(scene, sort_impl, diagnostics=True)
+    bvh = _build(scene, sort_impl, diagnostics=True, builder=builder)
     # Sort pass (re-run standalone so pre/post states are observable).
     keys_sorted, tri_sorted = sort.sort_key_val(
         scene.morton, scene.tri_index, impl=sort_impl
