@@ -54,8 +54,10 @@ import numpy as np
 import torch
 
 from unitysimpleraytracing_tpu_torch.utils.profiling import (
-    OPS_PER_LEAF_TEST2, OPS_PER_POP2, PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S, RECORD_BYTES2,
-    Timer, roofline_ms,
+    LOADED_BYTES_PER_LEAF_TEST, LOADED_BYTES_PER_LEAF_TEST2, LOADED_BYTES_PER_POP,
+    LOADED_BYTES_PER_POP2, OPS_PER_LEAF_TEST2, OPS_PER_POP2, PEAK_BYTES_PER_S,
+    PEAK_F32_NOFMA_OPS_PER_S, PEAK_F32_OPS_PER_S, RECORD_BYTES2, Timer, loaded_bytes,
+    roofline_ms, warp_lane_efficiency,
 )
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -124,22 +126,75 @@ def engine_of(module):
 
 
 def compare_kernel_with_plain(name, module, parity, table, o, d,
-                              t_init=None, thresh=None, work=None):
+                              t_init=None, thresh=None, work=None, timer=None):
     """Kernel against plain version on the same CUDA tensors.  Tolerance:
     identical hit masks; t, u, v bit-identical where tri agrees; every tri
-    disagreement an exact-t tie (|dt| <= 4e-6 |t|).  Returns the stats and
-    both results."""
+    disagreement an exact-t tie (|dt| <= 4e-6 |t|); the records popped per
+    ray (``steps``) identical.  With ``timer`` the plain run is timed
+    (``plain_ms``); ``work`` is filled by another plain run, not timed.
+    Returns the stats, both results and the kernel's steps."""
     kernel, plain = engine_of(module)
-    got = kernel(table, o, d, t_init=t_init, anyhit_thresh=thresh)
+    got, steps = kernel(table, o, d, t_init=t_init, anyhit_thresh=thresh, count_steps=True)
     torch.cuda.synchronize()
-    want = plain(
-        table, o, d, t_init=t_init, anyhit_thresh=thresh, work=work
-    )
+    kept = {}
+
+    def run_plain():
+        kept["r"] = plain(table, o, d, t_init=t_init, anyhit_thresh=thresh, count_steps=True)
+
+    plain_ms = timer.median_ms(run_plain, iters=1, warmup=0) if timer else run_plain()
+    if work is not None:
+        plain(table, o, d, t_init=t_init, anyhit_thresh=thresh, work=work)
     torch.cuda.synchronize()
+    want, want_steps = kept["r"]
     stats = parity.assert_hit_parity(np_hits(got), np_hits(want), exact=True)
+    assert torch.equal(steps, want_steps), f"{name}: records popped per ray differ"
+    stats["steps_bit_identical"] = True
     stats["max_abs_err"] = max(stats["max_abs_dt"], stats["max_abs_duv"])
     stats["case"] = name
-    return stats, got, want
+    if timer:
+        stats["plain_ms"] = plain_ms
+    return stats, got, want, steps
+
+
+def traversal_on_tree(timer, parity, module, table, rays, n_rays):
+    """One traversal kernel (``module`` = ops/trace_bvh4 or ops/trace_bvh2)
+    over one tree at the main path's shapes.  ``rays`` = {"primary": (o, d,
+    None), "shadow": (o, d, any-hit thresholds)}.  For each: the kernel
+    against its plain version (`compare_kernel_with_plain`, the plain run
+    timed once), the work this run's data needs (pops, leaf tests, distinct
+    records), the lane efficiency of 32-ray warps, the record bytes the
+    kernel loads as its code reads them, the roofline bound with operations
+    at the no-FMA rate, and the kernel's time with the L2 cold (and warm, on
+    primary rays), CUDA events with the device held while the host enqueues,
+    median of 7."""
+    kernel, _ = engine_of(module)
+    two = module.KERNEL_NAME == "trace_bvh2"
+    per_pop, per_leaf = ((LOADED_BYTES_PER_POP2, LOADED_BYTES_PER_LEAF_TEST2) if two
+                         else (LOADED_BYTES_PER_POP, LOADED_BYTES_PER_LEAF_TEST))
+    roof_kw = dict(record_bytes=RECORD_BYTES2, ops_per_pop=OPS_PER_POP2,
+                   ops_per_leaf_test=OPS_PER_LEAF_TEST2) if two else {}
+    out = {}
+    for name, (o, d, thr) in rays.items():
+        work = {}
+        st, _, _, steps = compare_kernel_with_plain(
+            f"{module.KERNEL_NAME}: {name} rays", module, parity, table, o, d,
+            thresh=thr, work=work, timer=timer)
+        pops, leaf = int(steps.sum()), work["leaf_tests"]
+        ms = timer.median_ms(lambda: kernel(table, o, d, anyhit_thresh=thr),
+                             iters=7, cold=True, queued=True)
+        loaded = loaded_bytes(pops, leaf, per_pop, per_leaf)
+        out[name] = {
+            "compare": st, "ms_cold_l2": ms, "plain_ms": st.pop("plain_ms"),
+            "pops": pops, "records_per_ray": pops / n_rays, "max_pops": int(steps.max()),
+            **work, "warp_lane_efficiency": warp_lane_efficiency(steps),
+            "loaded_bytes": loaded, "loaded_bytes_per_s": loaded / ms * 1e3,
+            **roofline_ms(n_rays, 0, thr is not None, work["records_visited"], pops, leaf,
+                          peak_ops=PEAK_F32_NOFMA_OPS_PER_S, **roof_kw),
+        }
+        if name == "primary":
+            out[name]["ms_warm_l2"] = timer.median_ms(
+                lambda: kernel(table, o, d, anyhit_thresh=thr), iters=7, queued=True)
+    return out
 
 
 def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -246,7 +301,7 @@ def run_sort_slice(rt, timer, smi, main_image, tex, bg, W, H):
         err["exclusive_scan"] = max(err["exclusive_scan"], max_abs_diff(got, want))
         scan_cases.append({"case": name, "elements": int(x.shape[0]),
                            "device_launches": levels, "bit_identical": True})
-    assert [c["device_launches"] for c in scan_cases] == [3, 5, 5]
+    assert [c["device_launches"] for c in scan_cases] == [1, 1, 1]
     xf = rng.normal(size=(1 << 20) + 77).astype(np.float32)
     got = K5(torch.from_numpy(xf).cuda()).cpu().numpy().astype(np.float64)
     want = scan.exclusive_scan_reference(xf.astype(np.float64))
@@ -271,8 +326,8 @@ def run_sort_slice(rt, timer, smi, main_image, tex, bg, W, H):
     dst = K4(keys, scanned, 0)
     block_ids = torch.arange(nblocks, device="cuda").repeat_interleave(BLOCK)
 
-    def cold(fn, iters=5):
-        return timer.median_ms(fn, iters=iters, cold=True)
+    def cold(fn, iters=5, queued=False):
+        return timer.median_ms(fn, iters=iters, cold=True, queued=queued)
 
     def library_histogram():
         return torch.bincount(block_ids * C.NUM_BUCKETS + (keys & 255),
@@ -287,23 +342,26 @@ def run_sort_slice(rt, timer, smi, main_image, tex, bg, W, H):
     bytes_k4 = n * 8 + nblocks * 1024 + n * 4
     times = {
         "digit_histogram": {
-            "ms": cold(lambda: K3(keys, 0)),
-            "plain_ms": cold(lambda: sort_radix_cuda.digit_histogram_plain(keys, 0)),
-            "library_ms": cold(library_histogram),
+            "ms": cold(lambda: K3(keys, 0), queued=True),
+            "plain_ms": cold(lambda: sort_radix_cuda.digit_histogram_plain(keys, 0), queued=True),
+            "library_ms": cold(library_histogram, queued=True),
             "library": "torch.bincount(block * 256 + (keys & 255), minlength=256 * nblocks), "
                        "index arithmetic included, block-major result",
             "min_bytes": bytes_k3,
         },
         "exclusive_scan": {
-            "ms": cold(lambda: K5(hist_t)),
-            "plain_ms": cold(lambda: scan.exclusive_scan_plain(hist_t)),
-            "library_ms": cold(lambda: torch.cumsum(hist_t, 0, dtype=torch.int32)),
+            "ms": cold(lambda: K5(hist_t), queued=True),
+            "ms_host_paced": cold(lambda: K5(hist_t)),
+            "plain_ms": cold(lambda: scan.exclusive_scan_plain(hist_t), queued=True),
+            "library_ms": cold(lambda: torch.cumsum(hist_t, 0, dtype=torch.int32), queued=True),
+            "library_ms_host_paced": cold(lambda: torch.cumsum(hist_t, 0, dtype=torch.int32)),
             "library": "torch.cumsum(hist_t, 0, dtype=torch.int32) (inclusive; no shift)",
             "min_bytes": bytes_k5,
         },
         "digit_rank": {
-            "ms": cold(lambda: K4(keys, scanned, 0)),
-            "plain_ms": cold(lambda: sort_radix_cuda.digit_rank_plain(keys, scanned, 0), iters=3),
+            "ms": cold(lambda: K4(keys, scanned, 0), queued=True),
+            "plain_ms": cold(lambda: sort_radix_cuda.digit_rank_plain(keys, scanned, 0), iters=3,
+                             queued=True),
             "library_ms": None,
             "library": "none: no single PyTorch call gives a stable per-block rank",
             "min_bytes": bytes_k4,
@@ -327,14 +385,16 @@ def run_sort_slice(rt, timer, smi, main_image, tex, bg, W, H):
         sort_1m[which].append(cold(torch_sort if which == "torch" else cuda_sort))
     emit("sort_kernels_vs_plain",
          tolerance="bit-identical for int32/int64; float32 scan within 1e-5 of the running "
-                   "sum of magnitudes (tree summation order)",
+                   "sum of magnitudes (tree and look-back summation order)",
          cases=cases, scan_cases=scan_cases, max_abs_err=err,
          times_at_1m_keys={"keys": n, "blocks": nblocks, "histogram_elements": int(hist_t.shape[0]),
                            "kernels": times, "scatter_ms": scatter_ms, "one_pass_ms": pass_ms,
                            "sum_of_parts_ms": times["digit_histogram"]["ms"]
                            + times["exclusive_scan"]["ms"] + times["digit_rank"]["ms"] + scatter_ms,
                            "four_pass_sort_ms_in_turns": sort_1m},
-         timing="CUDA events, median of 5 after a warm-up, 256 MB written before each sample",
+         timing="CUDA events, median of 5 after a warm-up, 256 MB written before each sample; "
+                "kernels, their plain versions and library calls with the device held while "
+                "the host enqueues (*_host_paced: without)",
          nvidia_smi=smi)
     del block_ids, shifted
 
@@ -344,7 +404,7 @@ def run_sort_slice(rt, timer, smi, main_image, tex, bg, W, H):
     bvh_cuda = rt.build_bvh(scene_260k, sort_impl="cuda", builder="karras")
     torch.cuda.synchronize()
     after_build = (K3.launches, K4.launches, K5.launches, K5.device_launches)
-    assert after_build == (4, 4, 4, 12), f"one 'cuda' sort launched {after_build}"
+    assert after_build == (4, 4, 4, 4), f"one 'cuda' sort launched {after_build}"
     cam = rt.make_camera(eye=(110.0, 90.0, 140.0), target=(0.0, 0.0, 0.0), width=W, height=H)
     frame = rt.render_frame(scene_260k, bvh_cuda, cam, tex, bg, shadows=True)
     image_cuda = rt.frame_to_image(frame)
@@ -356,7 +416,7 @@ def run_sort_slice(rt, timer, smi, main_image, tex, bg, W, H):
                      "exclusive_scan": K5.launches,
                      "exclusive_scan_device_launches": K5.device_launches}
     assert path_launches == {"digit_histogram": 8, "digit_rank": 8, "exclusive_scan": 8,
-                             "exclusive_scan_device_launches": 24}, path_launches
+                             "exclusive_scan_device_launches": 8}, path_launches
 
     assert image_cuda.tobytes() == main_image.tobytes(), \
         "the frame from the sort_impl='cuda' tree differs from the main path's frame"
@@ -435,7 +495,7 @@ def run_sort_slice(rt, timer, smi, main_image, tex, bg, W, H):
         "exclusive_scan": ("unitysimpleraytracing_tpu_torch/csrc/scan.cu",
                            "unitysimpleraytracing_tpu/ops/scan_pallas.py:36",
                            "ops/scan_pallas.py::_kernel",
-                           f"({256 * nblocks},) int32, 3 device launches a call"),
+                           f"({256 * nblocks},) int32, 1 device launch a call"),
     }
     entries = []
     for name in ("digit_histogram", "digit_rank", "exclusive_scan"):
@@ -451,6 +511,31 @@ def run_sort_slice(rt, timer, smi, main_image, tex, bg, W, H):
     return entries
 
 
+def traversal_entry(on_tree, name, replaces, function, launches, slots, n_rays):
+    """The ``kernels`` line's entry of a traversal kernel: its times on the
+    main path's rays over the default tree (``ms``), the Karras tree's beside
+    them (``ms_karras_tree``), the bound of the default tree's primary rays."""
+    p, s = on_tree["default"][name]["primary"], on_tree["default"][name]["shadow"]
+    karras = on_tree["karras"][name]
+    records = on_tree["default"]["records"][name]
+    return {
+        "name": name, "route": "cuda",
+        "source": f"unitysimpleraytracing_tpu_torch/csrc/{name}.cu",
+        "replaces": f"unitysimpleraytracing_tpu/{replaces}", "replaces_function": function,
+        "launches": launches,
+        "max_abs_err": max(p["compare"]["max_abs_err"], s["compare"]["max_abs_err"]),
+        "ms": p["ms_cold_l2"], "ms_primary": p["ms_cold_l2"], "ms_shadow": s["ms_cold_l2"],
+        "ms_karras_tree": karras["primary"]["ms_cold_l2"],
+        "ms_karras_tree_shadow": karras["shadow"]["ms_cold_l2"],
+        "plain_ms": p["plain_ms"], "records_per_ray": p["records_per_ray"],
+        "warp_lane_efficiency": p["warp_lane_efficiency"], "loaded_bytes": p["loaded_bytes"],
+        "bound_ms": p["bound_ms"], "bound_by": p["bound_by"], "bound_ms_shadow": s["bound_ms"],
+        "library_ms": None,
+        "shape": f"{n_rays} primary rays over the default tree's ({records}, {slots}) "
+                 "float32 table",
+    }
+
+
 def kernel_cases_65k(rt, timer, module, table, soup_table, s65):
     """One traversal kernel (``module`` = ops/trace_bvh4 or ops/trace_bvh2)
     against its plain version at the 65,522-triangle terrain / 512x512 and
@@ -463,7 +548,7 @@ def kernel_cases_65k(rt, timer, module, table, soup_table, s65):
     kernel, plain = engine_of(module)
     o, d = s65.o, s65.d
     cases = []
-    st, first, _ = compare_kernel_with_plain(
+    st, first, _, _ = compare_kernel_with_plain(
         "a: terrain 65,522 tris, 512x512 camera rays, tile-major",
         module, parity, table, o, d)
     cases.append(st)
@@ -476,12 +561,12 @@ def kernel_cases_65k(rt, timer, module, table, soup_table, s65):
     big = torch.full_like(t_first, float(MAX_FLOAT))
     above = torch.where(hit, t_first + eps, big)
     below = torch.where(hit, t_first - eps, big)
-    st, got_above, _ = compare_kernel_with_plain(
+    st, got_above, _, _ = compare_kernel_with_plain(
         "c1: case a with t_init just above the first pass",
         module, parity, table, o, d, t_init=above)
     assert torch.equal(got_above.t[hit], t_first[hit]), "t_init above lost a hit"
     cases.append(st)
-    st, got_below, _ = compare_kernel_with_plain(
+    st, got_below, _, _ = compare_kernel_with_plain(
         "c2: case a with t_init just below the first pass",
         module, parity, table, o, d, t_init=below)
     assert not bool((got_below.t < below).any()), "t_init below was undercut"
@@ -512,7 +597,7 @@ def kernel_cases_65k(rt, timer, module, table, soup_table, s65):
     })
 
     # (b) incoherent rays through a triangle soup.
-    st, _, _ = compare_kernel_with_plain(
+    st, _, _, _ = compare_kernel_with_plain(
         "b: soup 65,536 tris, 65,536 random rays", module, parity,
         soup_table, s65.ro, s65.rd)
     _, soup_steps = kernel(soup_table, s65.ro, s65.rd, count_steps=True)
@@ -901,7 +986,7 @@ def run_sah_path(rt, timer, smi, tex, bg, W, H, profile):
               for b, bvh in trees.items()}
     vs_plain = {}
     for module, table in ((trace_bvh4, tables[None][0]), (trace_bvh2, tables[None][1])):
-        st, _, _ = compare_kernel_with_plain(
+        st, _, _, _ = compare_kernel_with_plain(
             f"{module.KERNEL_NAME}: primary rays over the default tree", module, parity,
             table, o, d)
         vs_plain[module.KERNEL_NAME] = st
@@ -1176,55 +1261,56 @@ def main() -> int:
          shadowed_fraction=float(shadow.float().mean()), png=png_path,
          stage_ms=stages, mrays_per_s=2 * n_rays / frame_ms / 1e3, nvidia_smi=smi)
 
-    # The kernel at the main path's shapes: against its plain version, timed
-    # alone (cold L2 before each launch), with the work this run's data needs.
-    o, d = generate_rays(cam)
-    o = dispatch._tile_major(o, H, W, 32).contiguous()
-    d = dispatch._tile_major(d, H, W, 32).contiguous()
-    work_p = {}
-    t0 = time.perf_counter()
-    st_p, _, _ = compare_kernel_with_plain(
-        "e: main-path primary rays", trace_bvh4, parity, table, o, d, work=work_p)
-    so, sd, bound = render.shadow_rays(scene, bvh, hits, cam)
-    bo, bd, thr, limit = dispatch.occlusion_rays(
-        scene, dispatch._tile_major(so, H, W, 32), dispatch._tile_major(sd, H, W, 32),
-        origin_bound=bound)
-    bo, bd = bo.contiguous(), bd.contiguous()
-    work_s = {}
-    got = trace_bvh4.traverse_bvh4(table, bo, bd, anyhit_thresh=thr)
-    want = trace_bvh4.traverse_bvh4_plain(table, bo, bd, anyhit_thresh=thr, work=work_s)
-    assert torch.equal(got.hit & (got.t < limit), want.hit & (want.t < limit))
-    assert torch.equal(got.t, want.t) and torch.equal(got.tri, want.tri)
-    compare_s = time.perf_counter() - t0
+    # The kernels at the main path's shapes, over the Karras tree of the frame
+    # above and over the default tree that users trace (``build_bvh(scene)``):
+    # each against its plain version, timed alone, with the work this run's
+    # data needs.
+    def main_path_rays(tree):
+        """Tile-major primary rays and the shadow rays of this tree's hits."""
+        o, d = generate_rays(cam)
+        so, sd, bound = render.shadow_rays(scene, tree, rt.render_hits(scene, tree, cam), cam)
+        bo, bd, thr, _ = dispatch.occlusion_rays(
+            scene, dispatch._tile_major(so, H, W, 32), dispatch._tile_major(sd, H, W, 32),
+            origin_bound=bound)
+        return {"primary": (dispatch._tile_major(o, H, W, 32).contiguous(),
+                            dispatch._tile_major(d, H, W, 32).contiguous(), None),
+                "shadow": (bo.contiguous(), bd.contiguous(), thr)}
 
-    ms_primary = timer.median_ms(
-        lambda: trace_bvh4.traverse_bvh4(table, o, d), iters=7, cold=True)
-    ms_shadow = timer.median_ms(
-        lambda: trace_bvh4.traverse_bvh4(table, bo, bd, anyhit_thresh=thr),
-        iters=7, cold=True)
-    ms_primary_warm = timer.median_ms(lambda: trace_bvh4.traverse_bvh4(table, o, d), iters=7)
-    plain_ms = timer.median_ms(
-        lambda: trace_bvh4.traverse_bvh4_plain(table, o, d), iters=1, warmup=0)
-    plain_shadow_ms = timer.median_ms(
-        lambda: trace_bvh4.traverse_bvh4_plain(table, bo, bd, anyhit_thresh=thr),
-        iters=1, warmup=0)
-    _, steps_p = trace_bvh4.traverse_bvh4(table, o, d, count_steps=True)
-    _, steps_s = trace_bvh4.traverse_bvh4(table, bo, bd, anyhit_thresh=thr, count_steps=True)
-    pops_p, pops_s = int(steps_p.sum()), int(steps_s.sum())
-    roof_p = roofline_ms(n_rays, 0, 0, work_p["records_visited"], pops_p, work_p["leaf_tests"])
-    roof_s = roofline_ms(n_rays, 0, 1, work_s["records_visited"], pops_s, work_s["leaf_tests"])
-    requested_p = pops_p * 256
-    emit("kernel_at_main_path_shapes", compare=st_p, compare_seconds=compare_s,
-         shadow_records_bit_identical=True,
-         primary={"ms_cold_l2": ms_primary, "ms_warm_l2": ms_primary_warm,
-                  "plain_ms": plain_ms, "pops": pops_p,
-                  "records_per_ray": pops_p / n_rays, "max_pops": int(steps_p.max()),
-                  **work_p, **roof_p, "requested_bytes": requested_p,
-                  "requested_bytes_ms_at_hbm_rate": requested_p / PEAK_BYTES_PER_S * 1e3},
-         shadow={"ms_cold_l2": ms_shadow, "plain_ms": plain_shadow_ms, "pops": pops_s,
-                 "records_per_ray": pops_s / n_rays, "max_pops": int(steps_s.max()),
-                 **work_s, **roof_s, "requested_bytes": pops_s * 256},
+    t0 = time.perf_counter()
+    on_tree, rays_of, tables_of = {}, {}, {}
+    for label, tree in (("default", rt.build_bvh(scene)), ("karras", bvh)):
+        rays_of[label] = main_path_rays(tree)
+        tables_of[label] = (trace_bvh4.prepare_tables4(scene, tree),
+                            trace_bvh2.prepare_tables(scene, tree))
+        on_tree[label] = {
+            "records": {"trace_bvh4": int(tables_of[label][0].shape[0]),
+                        "trace_bvh2": int(tables_of[label][1].shape[0])},
+            **{m.KERNEL_NAME: traversal_on_tree(timer, parity, m, t, rays_of[label], n_rays)
+               for m, t in zip((trace_bvh4, trace_bvh2), tables_of[label])},
+        }
+    measure_s = time.perf_counter() - t0
+    t4, t2 = tables_of["karras"]
+    o, d, _ = rays_of["karras"]["primary"]
+
+    def k1_primary():
+        return trace_bvh4.traverse_bvh4(t4, o, d)
+
+    def k2_primary():
+        return trace_bvh2.traverse_bvh2(t2, o, d)
+
+    # The two kernels in turns on the same primary rays, cold L2.
+    turns = [[name, timer.median_ms(fn, iters=7, cold=True, queued=True)]
+             for name, fn in (("trace_bvh4", k1_primary), ("trace_bvh2", k2_primary),
+                              ("trace_bvh2", k2_primary), ("trace_bvh4", k1_primary))]
+    emit("kernel_at_main_path_shapes", trees=on_tree, seconds=measure_s,
+         karras_primary_ms_in_turns_cold_l2=turns,
+         bvh2_over_bvh4=(turns[1][1] + turns[2][1]) / (turns[0][1] + turns[3][1]),
+         tolerance="t, u, v bit-identical where tri agrees, tri only at exact-t ties, "
+                   "steps identical",
+         timing="CUDA events, median of 7 after a warm-up, the device held while the host "
+                "enqueues; plain versions one run",
          nvidia_smi=smi)
+    del t4, t2, tables_of, rays_of, o, d
     if args.profile:
         emit("profile_260k_frame_with_shadows", nvidia_smi=smi, **profile_frames(
             lambda: rt.render_frame(scene, bvh, cam, tex, bg, shadows=True), frame_ms))
@@ -1245,72 +1331,12 @@ def main() -> int:
         emit("gather_form_ab", rows=n_rays, row_bytes=16, nvidia_smi=smi,
              ms_in_turns=[[k, timer.median_ms(forms[k])] for k in order],
              same_values=all(bool(torch.equal(f(), want_rows)) for f in forms.values()))
-    # ---- 4b. kernel2_at_main_path_shapes: K2 on the same 2 M rays ----------
-    table2 = trace_bvh2.prepare_tables(scene, bvh)
-    work2_p, work2_s = {}, {}
-    t0 = time.perf_counter()
-    st2_p, _, _ = compare_kernel_with_plain(
-        "e2: main-path primary rays, binary records", trace_bvh2, parity, table2, o, d,
-        work=work2_p)
-    got = trace_bvh2.traverse_bvh2(table2, bo, bd, anyhit_thresh=thr)
-    want = trace_bvh2.traverse_bvh2_plain(table2, bo, bd, anyhit_thresh=thr, work=work2_s)
-    assert torch.equal(got.hit & (got.t < limit), want.hit & (want.t < limit))
-    assert torch.equal(got.t, want.t) and torch.equal(got.tri, want.tri)
-    compare2_s = time.perf_counter() - t0
-
-    def k1_primary():
-        return trace_bvh4.traverse_bvh4(table, o, d)
-
-    def k2_primary():
-        return trace_bvh2.traverse_bvh2(table2, o, d)
-
-    def k2_shadow():
-        return trace_bvh2.traverse_bvh2(table2, bo, bd, anyhit_thresh=thr)
-
-    ms2_primary = timer.median_ms(k2_primary, iters=7, cold=True)
-    ms2_shadow = timer.median_ms(k2_shadow, iters=7, cold=True)
-    ms2_primary_warm = timer.median_ms(k2_primary, iters=7)
-    plain2_ms = timer.median_ms(
-        lambda: trace_bvh2.traverse_bvh2_plain(table2, o, d), iters=1, warmup=0)
-    plain2_shadow_ms = timer.median_ms(
-        lambda: trace_bvh2.traverse_bvh2_plain(table2, bo, bd, anyhit_thresh=thr),
-        iters=1, warmup=0)
-    _, steps2_p = trace_bvh2.traverse_bvh2(table2, o, d, count_steps=True)
-    _, steps2_s = trace_bvh2.traverse_bvh2(table2, bo, bd, anyhit_thresh=thr, count_steps=True)
-    pops2_p, pops2_s = int(steps2_p.sum()), int(steps2_s.sum())
-    roof2 = dict(record_bytes=RECORD_BYTES2, ops_per_pop=OPS_PER_POP2,
-                 ops_per_leaf_test=OPS_PER_LEAF_TEST2)
-    roof2_p = roofline_ms(n_rays, 0, 0, work2_p["records_visited"], pops2_p,
-                          work2_p["leaf_tests"], **roof2)
-    roof2_s = roofline_ms(n_rays, 0, 1, work2_s["records_visited"], pops2_s,
-                          work2_s["leaf_tests"], **roof2)
-    # The two kernels in turns on the same primary rays, cold L2.
-    turns = [[name, timer.median_ms(fn, iters=7, cold=True)]
-             for name, fn in (("trace_bvh4", k1_primary), ("trace_bvh2", k2_primary),
-                              ("trace_bvh2", k2_primary), ("trace_bvh4", k1_primary))]
-    emit("kernel2_at_main_path_shapes", compare=st2_p, compare_seconds=compare2_s,
-         shadow_records_bit_identical=True, records=int(table2.shape[0]),
-         table_mb=table2.numel() * 4 / 2**20,
-         primary={"ms_cold_l2": ms2_primary, "ms_warm_l2": ms2_primary_warm,
-                  "plain_ms": plain2_ms, "pops": pops2_p,
-                  "records_per_ray": pops2_p / n_rays, "max_pops": int(steps2_p.max()),
-                  **work2_p, **roof2_p, "requested_bytes": pops2_p * RECORD_BYTES2},
-         shadow={"ms_cold_l2": ms2_shadow, "plain_ms": plain2_shadow_ms, "pops": pops2_s,
-                 "records_per_ray": pops2_s / n_rays, "max_pops": int(steps2_s.max()),
-                 **work2_s, **roof2_s, "requested_bytes": pops2_s * RECORD_BYTES2},
-         primary_ms_in_turns_cold_l2=turns,
-         bvh2_over_bvh4=(turns[1][1] + turns[2][1]) / (turns[0][1] + turns[3][1]),
-         nvidia_smi=smi)
-    del steps_p, steps_s, steps2_p, steps2_s
-
     # ---- 4c. dynamic_path: batched frames and the animated renderer --------
     dyn_launches, dynamic = run_dynamic_path(
         rt, timer, scene, bvh, cam, tex, bg, W, H, main_image)
     emit("dynamic_path", triangles=mesh.num_triangles, width=W, height=H,
          packet_vs_perray_65k_64x64=packet_check, nvidia_smi=smi, **dynamic)
-    records2_260k = int(table2.shape[0])
-    del table2
-    del scene, bvh, table, hits, rgba, frame, shadow, o, d, bo, bd, so, sd, got, want
+    del scene, bvh, table, hits, rgba, frame, shadow
 
     # ---- 5. main_path_1m: 1,048,352 triangles, one tree, 512x512 --------
     mesh = rt.terrain_mesh(res=725, size=300.0, amplitude=30.0, seed=0)
@@ -1339,13 +1365,17 @@ def main() -> int:
     ref = dispatch.trace_rays(scene, bvh, oo, dd, impl="perray")
     got = dispatch.trace_rays(scene, bvh, oo, dd, impl="cuda4")
     oracle = parity.assert_hit_parity(np_hits(got), np_hits(ref), uv_atol=1e-5)
+    vs_plain_1m, _, _, _ = compare_kernel_with_plain(
+        "trace_bvh4: 4,096 camera rays over 1,048,352 triangles", trace_bvh4, parity,
+        table, oo, dd)
     hits_1m = rt.render_hits(scene, bvh, cam)
     emit("main_path_1m", triangles=mesh.num_triangles, width=512, height=512,
          records=int(table.shape[0]), table_mb=table.numel() * 4 / 2**20,
          first_frame_seconds_with_ingest_build_pack=first_frame_s,
          frame_ms=frame_1m_ms, build_ms=build_1m_ms, build_peak_gb=build_peak_gb,
          hit_fraction=float(hits_1m.hit.float().mean()),
-         oracle_check_vs_perray_bvh2=oracle, nvidia_smi=smi)
+         oracle_check_vs_perray_bvh2=oracle, kernel_vs_plain_4096_rays=vs_plain_1m,
+         nvidia_smi=smi)
     del scene, bvh, table, frame, o, d, hits_1m
 
     # ---- 6. golden: frames rendered on the card through the kernel -------
@@ -1384,43 +1414,13 @@ def main() -> int:
 
     # ---- 10. kernels ------------------------------------------------------
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "trace_bvh4",
-        "route": "cuda",
-        "source": "unitysimpleraytracing_tpu_torch/csrc/trace_bvh4.cu",
-        "replaces": "unitysimpleraytracing_tpu/ops/trace_pallas4.py:366",
-        "replaces_function": "ops/trace_pallas4.py::_make_kernel4",
-        "launches": main_launches,
-        "max_abs_err": st_p["max_abs_err"],
-        "ms": ms_primary,
-        "ms_primary": ms_primary,
-        "ms_shadow": ms_shadow,
-        "plain_ms": plain_ms,
-        "records_per_ray": pops_p / n_rays,
-        "bound_ms": roof_p["bound_ms"],
-        "bound_by": roof_p["bound_by"],
-        "bound_ms_shadow": roof_s["bound_ms"],
-        "library_ms": None,
-        "shape": f"{n_rays} rays over a ({records_260k}, 64) float32 table",
-    }, {
-        "name": "trace_bvh2",
-        "route": "cuda",
-        "source": "unitysimpleraytracing_tpu_torch/csrc/trace_bvh2.cu",
-        "replaces": "unitysimpleraytracing_tpu/ops/trace_pallas.py:272",
-        "replaces_function": "ops/trace_pallas.py::_make_kernel",
-        "launches": dyn_launches["trace_bvh2"],
-        "max_abs_err": st2_p["max_abs_err"],
-        "ms": ms2_primary,
-        "ms_primary": ms2_primary,
-        "ms_shadow": ms2_shadow,
-        "plain_ms": plain2_ms,
-        "records_per_ray": pops2_p / n_rays,
-        "bound_ms": roof2_p["bound_ms"],
-        "bound_by": roof2_p["bound_by"],
-        "bound_ms_shadow": roof2_s["bound_ms"],
-        "library_ms": None,
-        "shape": f"{n_rays} rays over a ({records2_260k}, 32) float32 table",
-    }, *sort_entries, *probe_entries]}), flush=True)
+    print(json.dumps({"kernels": [
+        traversal_entry(on_tree, "trace_bvh4", "ops/trace_pallas4.py:366",
+                        "ops/trace_pallas4.py::_make_kernel4", main_launches, 64, n_rays),
+        traversal_entry(on_tree, "trace_bvh2", "ops/trace_pallas.py:272",
+                        "ops/trace_pallas.py::_make_kernel", dyn_launches["trace_bvh2"], 32,
+                        n_rays),
+        *sort_entries, *probe_entries]}), flush=True)
     emit("done", seconds=time.perf_counter() - t_script)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

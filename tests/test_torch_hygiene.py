@@ -171,7 +171,7 @@ def test_sort_wrappers_on_cpu_take_plain_versions_and_count_no_launch(wrapper):
 
 @pytest.mark.parametrize("name, entry_points", [
     (pcu.KERNEL_NAME, ["digit_histogram_launch", "digit_rank_launch"]),
-    (pscan.KERNEL_NAME, ["scan_chunks_launch", "scan_add_bases_launch"]),
+    (pscan.KERNEL_NAME, ["scan_launch"]),
 ])
 def test_sort_kernel_sources_and_build_recipe_are_in_the_package(name, entry_points):
     from unitysimpleraytracing_tpu_torch.utils import kernel_build
@@ -350,3 +350,64 @@ def test_build_bvh_default_needs_no_builder_and_launches_nothing_on_cpu():
         pt.solid_texture(device="cpu"), np.zeros(3, np.float32), shadows=True)
     assert bool(torch.isfinite(frame).all())
     assert pt4.traverse_bvh4.launches == 0 and pt2.traverse_bvh2.launches == 0
+
+
+# ---- the redesigned K5 and K1 ------------------------------------------------------
+
+
+@pytest.mark.parametrize("name, replaces, needs", [
+    ("scan", "ops/scan_pallas.py::_kernel",
+     ["atomicAdd(control", "st.release.gpu", "ld.acquire.gpu", "__ballot_sync"]),
+    ("trace_bvh4", "ops/trace_pallas4.py::_make_kernel4",
+     ["__trap()", "__ldg", "k = stack[--sp]"]),
+])
+def test_redesigned_kernels_keep_their_replaces_note(name, replaces, needs):
+    from unitysimpleraytracing_tpu_torch.utils import kernel_build
+
+    text = open(os.path.join(kernel_build.CSRC_DIR, name + ".cu"), encoding="utf-8").read()
+    head = text[:text.index("#include")]
+    assert f"Replaces the TPU kernel {replaces}" in " ".join(head.replace("//", "").split())
+    assert "What bounds it" in head
+    for needed in needs:
+        assert needed in text, needed
+    # One design, no compile-time switches.
+    assert "#if" not in text
+
+
+def test_scan_on_a_cuda_tensor_has_no_path_to_the_plain_version():
+    """`exclusive_scan` names its plain version once, under the test that the
+    tensor lies on the CPU; past it the kernel is launched (one launch, no
+    plain fallback, no ``try``) or the call raises."""
+    import inspect
+
+    src = inspect.getsource(pscan.exclusive_scan)
+    body = src[src.index('"""', src.index('"""') + 3) + 3:]  # past the docstring
+    assert body.count("exclusive_scan_plain") == 1
+    cpu_branch = body.index('if x.device.type == "cpu":')
+    assert cpu_branch < body.index("exclusive_scan_plain") < body.index("_load_kernel()")
+    assert 'if x.device.type != "cuda":' in body
+    launcher = inspect.getsource(pscan._scan_on_card)
+    assert launcher.count("fn(") == 1 and "raise RuntimeError" in launcher
+    for text in (body, launcher, inspect.getsource(pscan.ScanScratch)):
+        for banned in ("try:", "except", "cumsum", "compile"):
+            assert banned not in text, banned
+    assert "_plain" not in launcher
+
+
+def test_kernel_ab_measures_on_the_card_only(tmp_path):
+    from unitysimpleraytracing_tpu_torch.benchmarks import kernel_ab
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            kernel_ab.main([])
+    # --root must hold the package; this checkout's is already imported here.
+    with pytest.raises(ValueError, match="no unitysimpleraytracing_tpu_torch"):
+        kernel_ab.import_package(str(tmp_path))
+    (tmp_path / kernel_ab.PKG_NAME).mkdir()
+    with pytest.raises(RuntimeError, match="by its path"):
+        kernel_ab.import_package(str(tmp_path))
+    # The digest that shows two checkouts' kernels agree: order and bits count.
+    a, b = torch.arange(4, dtype=torch.int32), torch.tensor([0.5, -0.0])
+    assert kernel_ab.digest(a, b) == kernel_ab.digest(a.clone(), b.clone())
+    assert kernel_ab.digest(a, b) != kernel_ab.digest(b, a)
+    assert kernel_ab.digest(b) != kernel_ab.digest(torch.tensor([0.5, 0.0]))

@@ -68,6 +68,88 @@ def test_kernel_bit_identical_to_plain(card, scene_name):
     assert torch.equal(g.t[got.hit], got.t[got.hit])
 
 
+@pytest.mark.parametrize("scene_name", ["cube", "soup", "terrain"])
+def test_kernel_bit_identical_to_plain_default_tree(card, scene_name):
+    """The default (sah_free) tree, which users trace: t, tri, u, v and the
+    records popped per ray, for nearest hit, any-hit and t_init."""
+    mesh = {
+        "cube": lambda: pt.cube_mesh(size=2.0),
+        "soup": lambda: pt.random_triangle_soup(3000, seed=7, bound=5.0, tri_size=1.0),
+        "terrain": lambda: pt.terrain_mesh(res=64, size=20.0, amplitude=4.0, seed=0),
+    }[scene_name]()
+    scene = pt.build_scene(mesh)
+    table = trace_bvh4.prepare_tables4(scene, pt.build_bvh(scene))
+    o, d = _rays(10000, seed=3, bound=8.0, dev=card)
+    thr = torch.full((10000,), 9.0, device=card)
+    for kw in ({}, {"anyhit_thresh": thr}):
+        got, steps = trace_bvh4.traverse_bvh4(table, o, d, count_steps=True, **kw)
+        want, wsteps = trace_bvh4.traverse_bvh4_plain(table, o, d, count_steps=True, **kw)
+        _assert_same_bits(got, want)
+        assert torch.equal(steps, wsteps)
+    seed_t = torch.where(got.hit, got.t + 0.01, got.t)
+    got, steps = trace_bvh4.traverse_bvh4(table, o, d, t_init=seed_t, count_steps=True)
+    want, wsteps = trace_bvh4.traverse_bvh4_plain(table, o, d, t_init=seed_t, count_steps=True)
+    _assert_same_bits(got, want)
+    assert torch.equal(steps, wsteps)
+
+
+def _assert_same_bits(got, want):
+    for f in ("t", "u", "v"):
+        assert torch.equal(getattr(got, f).view(torch.int32), getattr(want, f).view(torch.int32)), f
+    assert torch.equal(got.tri, want.tri)
+
+
+def _chain_table(levels: int, dev):
+    """A record table whose walk needs the deepest stack a tree may need:
+    record i (i < levels) has four internal entries whose boxes every ray
+    hits; entry 0 leads to record i + 1 (record ``levels`` has only EMPTY
+    entries), entries 1-3 to that EMPTY record.  A ray travelling in +x
+    visits entry 0 first and keeps three entries on the stack per level."""
+    big, empty_meta = 1.0e3, float(1 << 21)
+    rows = []
+    for i in range(levels + 1):
+        rec = np.zeros(64, np.float32)
+        for e in range(4):
+            child = i + 1 if e == 0 else levels
+            if i < levels:
+                rec[6 * e: 6 * e + 6] = [-big, -big, -big, big, big, big]
+                rec[24 + e] = float(min(child, levels))
+            else:
+                rec[6 * e: 6 * e + 6] = [3e38, 3e38, 3e38, -3e38, -3e38, -3e38]
+                rec[24 + e] = empty_meta
+        rows.append(rec)
+    return torch.from_numpy(np.stack(rows)).to(dev)
+
+
+def test_kernel_at_the_stack_limit_equals_plain(card):
+    """21 levels of three pushed entries: 64 stack entries, the most a walk
+    may hold without the kernel trapping (one level more would trap)."""
+    table = _chain_table(21, card)
+    o, d = _rays(96, seed=5, bound=0.5, dev=card)
+    d[:64, 0] = d[:64, 0].abs() + 0.1  # these travel in +x: the deep order
+    d = d / d.norm(dim=1, keepdim=True)
+    got, steps = trace_bvh4.traverse_bvh4(table, o, d, count_steps=True)
+    want, wsteps = trace_bvh4.traverse_bvh4_plain(table, o, d, count_steps=True)
+    torch.cuda.synchronize()
+    _assert_same_bits(got, want)
+    assert torch.equal(steps, wsteps)
+    # 21 chain records, three EMPTY-record entries pushed by each, and the
+    # last record's entry 0.
+    assert int(wsteps.max()) == 21 + 21 * 3 + 1 and not bool(got.hit.any())
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 129, 1000, 4099])
+def test_kernel_ragged_ray_counts(card, n):
+    """Ray counts that are not a multiple of a warp's run of rays."""
+    scene = pt.build_scene(pt.random_triangle_soup(3000, seed=7, bound=5.0, tri_size=1.0))
+    table = trace_bvh4.prepare_tables4(scene, pt.build_bvh(scene))
+    o, d = _rays(n, seed=n, bound=8.0, dev=card)
+    got, steps = trace_bvh4.traverse_bvh4(table, o, d, count_steps=True)
+    want, wsteps = trace_bvh4.traverse_bvh4_plain(table, o, d, count_steps=True)
+    _assert_same_bits(got, want)
+    assert torch.equal(steps, wsteps) and steps.shape == (n,)
+
+
 def test_auto_dispatch_launches_the_kernel_on_cuda_rays(card):
     scene = pt.build_scene(pt.cube_mesh(size=2.0))
     bvh = pt.build_bvh(scene, builder="karras")
@@ -137,10 +219,100 @@ def test_scan_int_bit_identical_to_plain(card, n, dtype):
     got = scan.exclusive_scan(x)
     torch.cuda.synchronize()
     assert scan.exclusive_scan.launches == calls + 1
-    levels = 1 if n <= 1024 else 3 if n <= 1 << 20 else 5
-    assert scan.exclusive_scan.device_launches == dev + levels
+    assert scan.exclusive_scan.device_launches == dev + 1  # one launch for every n
     assert got.dtype == dtype
     assert torch.equal(got, scan.exclusive_scan_plain(x))
+
+
+def _scan_inputs(n, dtype, dev):
+    rng = np.random.default_rng(n)
+    if dtype == torch.float32:
+        rand = rng.normal(size=n).astype(np.float32)
+    elif dtype == torch.int64:
+        rand = rng.integers(0, 1 << 40, size=n)
+    else:
+        rand = rng.integers(-1000, 1025, size=n).astype(np.int32)
+    return [torch.from_numpy(np.asarray(a)).to(dev, dtype)
+            for a in (rand, np.zeros(n), np.ones(n))]
+
+
+def _assert_scan_right(got, x):
+    if x.dtype == torch.float32:
+        xs = x.double().cpu().numpy()
+        want = scan.exclusive_scan_reference(xs)
+        bound = 1e-5 * np.maximum(scan.exclusive_scan_reference(np.abs(xs)), 1.0)
+        assert np.all(np.abs(got.double().cpu().numpy() - want) <= bound)
+    else:
+        assert torch.equal(got, scan.exclusive_scan_plain(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float32])
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 65280, 262144, (1 << 22) + 3])
+def test_scan_lookback_at_tile_edges_and_path_sizes(card, n, dtype):
+    """One launch per call; integer types bit-identical to the plain version,
+    float32 within 1e-5 of the running sum of magnitudes; random values, all
+    zeros and all ones."""
+    for x in _scan_inputs(n, dtype, card):
+        dev = scan.exclusive_scan.device_launches
+        got = scan.exclusive_scan(x)
+        torch.cuda.synchronize()
+        assert scan.exclusive_scan.device_launches == dev + 1
+        assert got.dtype == dtype and got.shape == x.shape
+        _assert_scan_right(got, x)
+
+
+def test_scan_100_calls_in_a_row_on_one_scratch(card):
+    """Stale status words of earlier calls must read as unpublished: 100
+    calls on one stream's scratch, sizes and dtypes mixed, each checked."""
+    rng = np.random.default_rng(9)
+    sizes = [int(s) for s in rng.choice([1, 4095, 4097, 65280, 262144, 300000], size=100)]
+    dtypes = [torch.int32, torch.int64, torch.float32]
+    inputs = [_scan_inputs(n, dtypes[i % 3], card)[0] for i, n in enumerate(sizes)]
+    dev = scan.exclusive_scan.device_launches
+    outs = [scan.exclusive_scan(x) for x in inputs]
+    torch.cuda.synchronize()
+    assert scan.exclusive_scan.device_launches == dev + 100
+    for got, x in zip(outs, inputs):
+        _assert_scan_right(got, x)
+
+
+def test_scan_streams_do_not_share_scratch(card):
+    x = _scan_inputs(262144, torch.int32, card)[0]
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        got_side = scan.exclusive_scan(x)
+    got_main = scan.exclusive_scan(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got_side, got_main)
+    _assert_scan_right(got_main, x)
+    keys = [k for k in scan._SCRATCH if k[0] == x.device.index]
+    assert (x.device.index, side.cuda_stream) in keys and len(keys) >= 2
+
+
+def test_scan_replays_from_a_cuda_graph(card):
+    """A captured call replays right 100 times, with eager calls of another
+    size on the same stream's scratch in between: the epoch and the tickets
+    move on the device, not in the call's arguments."""
+    n = 262144 + 5
+    static_x = torch.zeros(n, dtype=torch.int32, device=card)
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        scan.exclusive_scan(static_x)  # builds the kernel and this stream's scratch
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        static_out = scan.exclusive_scan(static_x)
+    rng = np.random.default_rng(11)
+    for i in range(100):
+        x = torch.from_numpy(rng.integers(-1000, 1025, size=n).astype(np.int32)).to(card)
+        y = _scan_inputs(4097 + i, torch.int64, card)[0]
+        with torch.cuda.stream(s):
+            static_x.copy_(x)
+            g.replay()
+            got_y = scan.exclusive_scan(y)
+        torch.cuda.synchronize()
+        assert torch.equal(static_out, scan.exclusive_scan_plain(x)), i
+        assert torch.equal(got_y, scan.exclusive_scan_plain(y)), i
 
 
 def test_scan_float_within_tolerance(card):

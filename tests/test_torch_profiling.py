@@ -157,3 +157,70 @@ def test_chip_smoke_takes_its_timer_and_roofline_from_this_module():
     assert "from unitysimpleraytracing_tpu_torch.utils.profiling import" in smoke
     assert "class Timer" not in smoke and "def roofline_ms" not in smoke
     assert np.isfinite(pprof.roofline_ms(1, 0, 0, 1, 1, 1)["bound_ms"])
+
+
+# ---- what a traversal kernel asks of the caches, and how busy its lanes are -----
+
+
+@pytest.mark.parametrize("steps, want", [
+    ([3] * 32, 1.0),                                   # one full warp, all equal
+    ([4] + [1] * 31, 35 / (32 * 4)),                   # one long ray idles 31 lanes
+    ([2] * 32 + [5, 1], (64 + 6) / (32 * 2 + 32 * 5)),  # ragged last warp: 30 idle lanes
+    ([0] * 40, 1.0),                                   # no ray took a step
+])
+def test_warp_lane_efficiency_by_hand(steps, want):
+    got = pprof.warp_lane_efficiency(torch.tensor(steps, dtype=torch.int32))
+    assert got == pytest.approx(want, rel=1e-12)
+    assert pprof.warp_lane_efficiency(np.asarray(steps)) == pytest.approx(want, rel=1e-12)
+
+
+def test_warp_lane_efficiency_rejects_no_rays_and_takes_other_warp_widths():
+    with pytest.raises(ValueError):
+        pprof.warp_lane_efficiency(torch.zeros(0, dtype=torch.int32))
+    assert pprof.warp_lane_efficiency(torch.tensor([1, 3, 2, 2]), warp=2) == pytest.approx(8 / 10)
+    assert pprof.warp_steps(torch.tensor([1, 3, 2, 2, 7]), warp=2) == 3 + 2 + 7
+
+
+def _small_walk(module_name):
+    from unitysimpleraytracing_tpu_torch.ops import trace_bvh2, trace_bvh4
+
+    scene = pt.build_scene(pt.terrain_mesh(res=16, size=10.0, amplitude=2.0, seed=3), device=CPU)
+    bvh = pt.build_bvh(scene)
+    rng = np.random.default_rng(4)
+    o = torch.from_numpy(rng.uniform(-6, 6, size=(300, 3)).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(300, 3)).astype(np.float32))
+    d = d / d.norm(dim=1, keepdim=True)
+    work = {}
+    if module_name == "trace_bvh4":
+        table = trace_bvh4.prepare_tables4(scene, bvh)
+        _, steps = trace_bvh4.traverse_bvh4_plain(table, o, d, count_steps=True, work=work)
+    else:
+        table = trace_bvh2.prepare_tables(scene, bvh)
+        _, steps = trace_bvh2.traverse_bvh2_plain(table, o, d, count_steps=True, work=work)
+    return table, o, d, steps, work
+
+
+@pytest.mark.parametrize("module_name, per_pop, per_leaf", [
+    ("trace_bvh4", 7 * 16, 9 * 4),    # seven 16-byte loads; a leaf as nine 4-byte loads
+    ("trace_bvh2", 4 * 16, 9 * 4),    # four 16-byte loads; a leaf as nine 4-byte loads
+])
+def test_loaded_bytes_counted_by_hand_from_the_plain_walk(module_name, per_pop, per_leaf):
+    _, _, _, steps, work = _small_walk(module_name)
+    pops, leaf = int(steps.sum()), work["leaf_tests"]
+    assert pops > 300 and 0 < leaf < 4 * pops
+    if module_name == "trace_bvh4":
+        got = pprof.loaded_bytes(pops, leaf)
+    else:
+        got = pprof.loaded_bytes(pops, leaf, pprof.LOADED_BYTES_PER_POP2,
+                                 pprof.LOADED_BYTES_PER_LEAF_TEST2)
+    assert got == pops * per_pop + leaf * per_leaf
+
+
+def test_no_fma_rate_is_the_lanes_times_the_clock():
+    assert pprof.PEAK_F32_NOFMA_OPS_PER_S == 132 * 128 * 1.98e9
+    assert pprof.PEAK_F32_NOFMA_OPS_PER_S == pytest.approx(33.45e12, rel=1e-3)
+    assert pprof.PEAK_F32_NOFMA_OPS_PER_S == pytest.approx(pprof.PEAK_F32_OPS_PER_S / 2, rel=2e-3)
+    roof = pprof.roofline_ms(32, 0, 0, 1, 10**9, 0, peak_ops=pprof.PEAK_F32_NOFMA_OPS_PER_S)
+    assert roof["operations_ms"] == 10**9 * pprof.OPS_PER_POP / pprof.PEAK_F32_NOFMA_OPS_PER_S * 1e3
+    assert roof["operations_ms"] == pytest.approx(
+        2 * pprof.roofline_ms(32, 0, 0, 1, 10**9, 0)["operations_ms"], rel=2e-3)

@@ -86,3 +86,60 @@ def test_exclusive_scan_rejects_what_the_kernel_does_not_take(bad, exc):
         pscan.exclusive_scan(bad())
     with pytest.raises(exc):
         pscan.exclusive_scan_plain(bad())
+
+
+# ---- the one-launch look-back kernel's bookkeeping (no card needed) ---------------
+
+
+@pytest.mark.parametrize("n, tiles", [
+    (1, 1), (4095, 1), (4096, 1), (4097, 2), (65280, 16), (262144, 64),
+    ((1 << 22) + 3, 1025), ((1 << 31) - 1, 1 << 19),
+])
+def test_tile_count_of_one_call(n, tiles):
+    assert pscan.tiles_of(n) == tiles
+    assert pscan.TILE == 4096
+
+
+@pytest.mark.parametrize("n", [0, -1, 1 << 31])
+def test_tile_count_rejects_what_the_kernel_does_not_take(n):
+    with pytest.raises(ValueError):
+        pscan.tiles_of(n)
+
+
+def test_scratch_is_sized_by_tiles_and_passes_no_per_call_state():
+    """The host gives every call of one size the same words and capacity
+    (the epoch and the tickets live in the control word on the device), so a
+    captured call replays with the arguments it was captured with."""
+    sc = pscan.ScanScratch("cpu")
+    words, cap = sc.reserve(16)
+    assert cap == 16 and sc.calls == 1
+    assert words.dtype == torch.int64 and words.shape == (1 + 3 * 16,)
+    assert not bool(words.any())  # zero-filled: no status word reads as published
+    # Calls that fit keep the words.
+    for tiles in (3, 16, 1):
+        assert sc.reserve(tiles) == (words, 16)
+    # A call with more tiles grows the words (zero-filled again).
+    w, c = sc.reserve(17)
+    assert w is not words and c == 32 and not bool(w.any()) and sc.calls == 1
+    assert w.shape == (1 + 3 * 32,)
+    with pytest.raises(ValueError):
+        sc.reserve(0)
+
+
+def test_scratch_starts_afresh_before_the_epochs_run_out():
+    """After `CALLS_PER_FILL` calls the same words are zero-filled in place,
+    before a status word's 30-bit epoch can come round to this call's."""
+    assert pscan.CALLS_PER_FILL == (1 << 30) - 1
+    sc = pscan.ScanScratch("cpu")
+    words, _ = sc.reserve(4)
+    words[1:] = 7  # stand-in for status words left by earlier calls
+    sc.calls = pscan.CALLS_PER_FILL - 1
+    w, _ = sc.reserve(4)
+    assert w is words and bool((w[1:] == 7).all()) and sc.calls == pscan.CALLS_PER_FILL
+    w, _ = sc.reserve(4)
+    assert w is words and not bool(w.any()) and sc.calls == 1
+
+
+def test_wrapper_raises_on_a_device_it_has_no_kernel_for():
+    with pytest.raises(ValueError, match="unsupported device"):
+        pscan.exclusive_scan(torch.zeros(8, dtype=torch.int32, device="meta"))

@@ -13,13 +13,21 @@
 //   [24, 28)  four metas stored as floats: idx | leaf << 21 | axis << 22
 //   [28, 64)  four pre-differenced triangles, each (a, e1 = b - a, e2 = c - a)
 //
-// What bounds it: the walk is a chain of dependent 256-byte record fetches
-// (a pop cannot be issued before the previous record's slab tests are done),
-// so it is latency bound on the L2/HBM path, not bandwidth or FLOP bound.  The
-// design reads boxes and metas with seven 16-byte read-only loads per pop,
-// fetches the 36 bytes of a leaf triangle only when that entry's slab test
-// passed, and relies on rays arriving in 32x32 tile-major order so the lanes
-// of a warp touch the same records and the table stays in L1/L2.
+// What bounds it on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py,
+// 2,027,520 primary rays over the default tree of 260,642 triangles): not
+// the bytes it loads (112 a pop, 36 a leaf test: 1.0 GB, which arrive at
+// about 4.5 TB/s from the caches), not L2 (a cold L2 costs nothing over a
+// warm one) and not one fetch's latency (benchmarks/kernel_probe.py), but
+// the walk's chain of dependent steps: stack -> record -> slab tests -> next
+// record, with the lanes of a 32-ray warp 74 % busy: 0.22 ms against a
+// 0.030 ms bound (bytes; operations at the no-FMA rate 0.028).  The design:
+// one thread per ray; the record popped next stays in a register instead of
+// being pushed and popped straight back (a local store and a dependent local
+// load fewer on most pops; benchmarks/kernel_ab.py times it against the
+// first kernel); boxes and metas as seven 16-byte read-only loads; a leaf's
+// 36 bytes as nine 4-byte loads, only when its slab test passed; rays in
+// 32x32 tile-major order, 32 of one pixel row to a warp; 128-thread blocks
+// (55 registers, no spill: 36 resident warps a SM).
 //
 // Arithmetic contract: compiled with -fmad=false and without fast-math, every
 // product and sum below is a separate IEEE float32 operation in the order
@@ -87,11 +95,10 @@ trace_bvh4_kernel(
     int steps = 0;
 
     int stack[STACK_DEPTH];
-    int sp = 1;
-    stack[0] = 0;
+    int k = 0;                           // the record popped next
+    int sp = 0;                          // entries on the stack below k
 
-    while (sp > 0) {
-        const int k = stack[--sp];
+    while (true) {
         ++steps;
         const float4* rec = table + (size_t)k * 16;
 
@@ -157,9 +164,9 @@ trace_bvh4_kernel(
             break;
         }
 
-        // Push internal entries far-to-near.  Pair order by the record's own
-        // split axis (meta 0), order inside each pair by that child's split
-        // axis (metas 1 and 2), each against this ray's direction sign.
+        // Internal entries far-to-near.  Pair order by the record's own split
+        // axis (meta 0), order inside each pair by that child's split axis
+        // (metas 1 and 2), each against this ray's direction sign.
         const int a_self = m[0] >> 22;
         const int a_l = m[1] >> 22;
         const int a_r = m[2] >> 22;
@@ -190,14 +197,22 @@ trace_bvh4_kernel(
         const bool s2p = n_pair ? r0p : l0p;
         const int s3i = n_pair ? r1i : l1i;
         const bool s3p = n_pair ? r1p : l1p;
-        // A tree deeper than the stack allows is an error, never a silent
-        // overwrite (net growth is at most 3 per record over at most 17
-        // collapsed levels, so 64 entries suffice for 32-bit keys).
+        // A tree deeper than the 64-entry stack allows is an error, never a
+        // silent overwrite (net growth is at most 3 per record over at most 17
+        // collapsed levels, so 64 entries suffice for 32-bit keys).  The entry
+        // popped next stays in a register, so the stack holds one entry less
+        // than a push-all-then-pop walk; the test is that walk's.
         if (sp + (int)s0p + (int)s1p + (int)s2p + (int)s3p > STACK_DEPTH) __trap();
-        if (s3p) stack[sp++] = s3i;
-        if (s2p) stack[sp++] = s2i;
-        if (s1p) stack[sp++] = s1i;
-        if (s0p) stack[sp++] = s0i;
+        // Pushed in the order s3, s2, s1, s0; the last one pushed is the next
+        // pop, so it goes to k and not through the stack.
+        int next = -1;
+        if (s3p) { next = s3i; }
+        if (s2p) { if (next >= 0) stack[sp++] = next; next = s2i; }
+        if (s1p) { if (next >= 0) stack[sp++] = next; next = s1i; }
+        if (s0p) { if (next >= 0) stack[sp++] = next; next = s0i; }
+        if (next >= 0) k = next;
+        else if (sp > 0) k = stack[--sp];
+        else break;
     }
 
     out_t[r] = t;

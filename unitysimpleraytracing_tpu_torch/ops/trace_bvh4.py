@@ -29,16 +29,19 @@ reverse; the strict-< hit keep makes order affect only exact-t ties.
 Kernel note.  `traverse_bvh4` launches ``csrc/trace_bvh4.cu``, the
 hand-written CUDA kernel that replaces the TPU kernel
 ``ops/trace_pallas4.py::_make_kernel4``: one thread per ray with a private
-64-entry stack.  On this card the walk is bound by the latency of dependent
-256-byte record fetches (mostly served by L2 when rays arrive in 32×32
-tile-major order), not by bytes or operations; the design keeps the fetch
-small (16-byte loads, leaf vertices only when the entry's box was hit) and
-leaves warp-cooperative traversal to later work.  Its roofline bound is bytes
-(rays in, hits out, each distinct record once): on an H100 80GB HBM3 at 700 W
-``chip_smoke.py`` measured 0.33 ms against a 0.030 ms bound for 2,027,520
-camera rays over 130,424 records.  `traverse_bvh4_plain` is
-the same traversal in plain PyTorch with the same arithmetic order; the CPU
-tests use it and ``chip_smoke.py`` holds the kernel against it bit for bit.
+64-entry stack, the record it pops next kept in a register.  What bounds it
+on this card is the walk's chain of dependent steps (stack, record, slab
+tests, next record), not bytes, L2 or one fetch's latency: the bytes it loads
+arrive at about 4.5 TB/s from the caches, a warm L2 gains nothing over a cold
+one, and the lanes of a 32-ray warp are about 74 % busy.  Its roofline bound
+is the larger of bytes (rays in, hits out, each distinct record once) and
+float32 operations at the no-FMA rate: on an H100 80GB HBM3 at 700 W,
+2,027,520 primary rays over the default tree of 260,642 triangles take about
+0.22 ms against a 0.030 ms bound (``chip_smoke.py``; ``PERF.md`` has the
+first kernel's time beside it, from ``benchmarks/kernel_ab.py``).
+`traverse_bvh4_plain` is the same traversal in plain PyTorch with the same
+arithmetic order; the CPU tests use it and ``chip_smoke.py`` holds the kernel
+against it bit for bit, records popped per ray included.
 
 Reference mapping: same acceptance contract as Raytracing.compute:37-103
 (slab ``tmax>tmin && tmax>0``, Möller–Trumbore det/u/v rejects, no t>0 test).

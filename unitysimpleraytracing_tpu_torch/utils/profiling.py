@@ -17,7 +17,9 @@ one.
   the card's peaks.  `device_trace` wraps ``torch.profiler`` and writes a
   Chrome trace.
 - `sort_bytes`, `build_bytes`, `traverse_bytes`, `roofline_ms`: what the hot
-  operators must move and compute, for a roofline bound.
+  operators must move and compute, for a roofline bound; `loaded_bytes`,
+  `warp_steps` and `warp_lane_efficiency`: what a traversal kernel asks of the
+  caches and how busy its warps' lanes are, from the records it popped.
 """
 from __future__ import annotations
 
@@ -37,6 +39,14 @@ from unitysimpleraytracing_tpu_torch.utils.device import resolve_device
 # these whatever the card's power limit, which belongs beside the number.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# The float32 rate of code without fused multiply-adds.  The traversal
+# kernels are built with -fmad=false, so every product and every sum is an
+# instruction of its own, and a lane retires at most one a cycle: 132 SMs x
+# 128 float32 lanes x 1.98 GHz (the H100 SXM's boost clock) = 33.45e12 a
+# second, half of PEAK_F32_OPS_PER_S, which counts a multiply-add as two.
+# The integer, select and load instructions around them are not counted, so
+# a bound at this rate is still below what the kernels issue.
+PEAK_F32_NOFMA_OPS_PER_S = 132 * 128 * 1.98e9
 # Float32 operations of csrc/trace_bvh4.cu, counted from its source.
 # Per popped record: 4 slab tests x (6 sub + 6 mul + 10 fmin/fmax + 3 compare).
 OPS_PER_POP = 4 * 25
@@ -48,6 +58,15 @@ OPS_PER_LEAF_TEST = 53
 RECORD_BYTES2 = 128
 OPS_PER_POP2 = 2 * 25
 OPS_PER_LEAF_TEST2 = OPS_PER_LEAF_TEST + 6
+# Bytes the kernels load, as their code reads them.  csrc/trace_bvh4.cu: the
+# four boxes and the metas of a popped record as seven 16-byte loads, and the
+# 36-byte triangle of a leaf entry whose slab test passed as nine 4-byte
+# loads.  csrc/trace_bvh2.cu: four 16-byte loads per popped record, nine
+# 4-byte loads per leaf test.
+LOADED_BYTES_PER_POP = 7 * 16
+LOADED_BYTES_PER_LEAF_TEST = 9 * 4
+LOADED_BYTES_PER_POP2 = 4 * 16
+LOADED_BYTES_PER_LEAF_TEST2 = 9 * 4
 
 
 def _first_tensor(x):
@@ -131,9 +150,20 @@ def measure_interleaved(
     }
 
 
+# Cycles the device is held busy before a `queued` sample (about 1 ms).
+HOLD_CYCLES = 2_000_000
+
+
 class Timer:
     """CUDA-event timing; every sample is one call, optionally after a write
-    of a buffer larger than the 50 MB L2 so the call finds the cache cold."""
+    of a buffer larger than the 50 MB L2 so the call finds the cache cold.
+
+    Without ``queued`` the start event is recorded when the host gets there,
+    so a call whose launches take the host longer than the device takes to
+    run them is timed at the host's pace.  ``queued=True`` holds the device
+    busy (``torch.cuda._sleep``, after the flush) while the host records the
+    start event and enqueues the call: the sample is then the device's time
+    from the call's first launch to its last kernel's end."""
 
     def __init__(self):
         self.flush_buf = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
@@ -141,13 +171,16 @@ class Timer:
     def flush_l2(self) -> None:
         self.flush_buf.zero_()
 
-    def samples(self, fn, iters: int, warmup: int = 1, cold: bool = False):
+    def samples(self, fn, iters: int, warmup: int = 1, cold: bool = False,
+                queued: bool = False):
         for _ in range(warmup):
             fn()
         out = []
         for _ in range(iters):
             if cold:
                 self.flush_l2()
+            if queued:
+                torch.cuda._sleep(HOLD_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -157,8 +190,9 @@ class Timer:
             out.append(start.elapsed_time(end))
         return out
 
-    def median_ms(self, fn, iters: int = 5, warmup: int = 1, cold: bool = False) -> float:
-        return float(np.median(self.samples(fn, iters, warmup, cold)))
+    def median_ms(self, fn, iters: int = 5, warmup: int = 1, cold: bool = False,
+                  queued: bool = False) -> float:
+        return float(np.median(self.samples(fn, iters, warmup, cold, queued)))
 
 
 @dataclass
@@ -275,14 +309,15 @@ def traverse_bytes(n_rays: int, records_visited: int, record_bytes: int = 256,
 
 def roofline_ms(n_rays, has_t_init, has_thresh, records_visited, pops, leaf_tests,
                 record_bytes=256, ops_per_pop=OPS_PER_POP,
-                ops_per_leaf_test=OPS_PER_LEAF_TEST):
+                ops_per_leaf_test=OPS_PER_LEAF_TEST, peak_ops=PEAK_F32_OPS_PER_S):
     """Least time the card could take for one run's traversal: the bytes of
     `traverse_bytes` at the device memory rate against this run's float32
-    operations at the float32 rate."""
+    operations at ``peak_ops`` (`PEAK_F32_NOFMA_OPS_PER_S` for the kernels,
+    which are built without multiply-adds)."""
     min_bytes = traverse_bytes(n_rays, records_visited, record_bytes, has_t_init, has_thresh)
     t_bytes = min_bytes / PEAK_BYTES_PER_S * 1e3
     ops = pops * ops_per_pop + leaf_tests * ops_per_leaf_test
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return {
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -291,3 +326,31 @@ def roofline_ms(n_rays, has_t_init, has_thresh, records_visited, pops, leaf_test
         "min_bytes": min_bytes,
         "operations": ops,
     }
+
+
+def loaded_bytes(pops: int, leaf_tests: int, per_pop: int = LOADED_BYTES_PER_POP,
+                 per_leaf_test: int = LOADED_BYTES_PER_LEAF_TEST) -> int:
+    """Record bytes a traversal kernel asks of the caches in one run: what it
+    loads per popped record and per leaf test, times this run's counts (the
+    ``steps`` total and the plain version's ``work["leaf_tests"]``)."""
+    return pops * per_pop + leaf_tests * per_leaf_test
+
+
+def warp_steps(steps, warp: int = 32) -> int:
+    """Steps the warps run when each run of ``warp`` consecutive rays is one
+    warp and a warp runs as many steps as its longest ray: the sum over warps
+    of the most records a ray of the warp popped (a ragged last warp too)."""
+    s = torch.as_tensor(steps).reshape(-1).to(torch.int64)
+    if s.numel() == 0:
+        raise ValueError("no rays")
+    s = torch.nn.functional.pad(s, (0, (-s.numel()) % warp))
+    return int(s.reshape(-1, warp).max(dim=1).values.sum())
+
+
+def warp_lane_efficiency(steps, warp: int = 32) -> float:
+    """Share of lane-steps that do work: ``steps.sum() / (warp *
+    warp_steps(steps))``.  A ragged last warp's missing lanes count as idle,
+    as the threads past the end of a launch are.  1.0 where no ray took a
+    step."""
+    busiest = warp_steps(steps, warp)
+    return 1.0 if busiest == 0 else int(torch.as_tensor(steps).sum()) / (warp * busiest)
