@@ -5,7 +5,7 @@
 
 Drives the port's main paths through the public entry points, at the sizes
 the repo calls real (260,642 triangles at 1920x1056 with shadow rays;
-1,048,352 triangles as one tree):
+1,048,352 triangles as one tree; 4,193,408 triangles in chunks):
 
 - the static-scene frame: procedural mesh → ``build_scene`` → ``build_bvh`` →
   BVH4 record table → CUDA traversal kernel → shade → compose → PNG;
@@ -23,7 +23,13 @@ the repo calls real (260,642 triangles at 1920x1056 with shadow rays;
 - the default build: ``build_bvh(scene)`` with no ``builder`` (free-order
   sweep SAH), ``"sah"`` and ``"karras"`` in turns on the 260,642-triangle
   scene, ``validate=True`` on the default tree, frames and both traversal
-  kernels on all three trees, and one ``"sah"`` build of 1,048,352 triangles.
+  kernels on all three trees, and one ``"sah"`` build of 1,048,352 triangles;
+- K1's compressed-record variant (K1c) on the 260,642-triangle default tree:
+  ``trace_rays(..., tables=compress_tables4(prepare_tables4(...)))``;
+- large scenes: 4,193,408 triangles through ``build_bvh_chunked`` (26 chunks)
+  and ``render_frame_chunked`` at 1920x1056 with shadows; at 1,048,352
+  triangles one tree against chunks (the CLI's switch point), binary chunk
+  records, and a save → load → trace round trip of the chunked checkpoint.
 
 It builds the hand-written kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, shows by launch counts
@@ -55,9 +61,9 @@ import torch
 
 from unitysimpleraytracing_tpu_torch.utils.profiling import (
     LOADED_BYTES_PER_LEAF_TEST, LOADED_BYTES_PER_LEAF_TEST2, LOADED_BYTES_PER_POP,
-    LOADED_BYTES_PER_POP2, OPS_PER_LEAF_TEST2, OPS_PER_POP2, PEAK_BYTES_PER_S,
-    PEAK_F32_NOFMA_OPS_PER_S, PEAK_F32_OPS_PER_S, RECORD_BYTES2, Timer, loaded_bytes,
-    roofline_ms, warp_lane_efficiency,
+    LOADED_BYTES_PER_POP2, LOADED_BYTES_PER_POP_C, OPS_PER_LEAF_TEST2, OPS_PER_POP2,
+    PEAK_BYTES_PER_S, PEAK_F32_NOFMA_OPS_PER_S, PEAK_F32_OPS_PER_S, RECORD_BYTES2,
+    RECORD_BYTES_C, Timer, loaded_bytes, roofline_ms, warp_lane_efficiency,
 )
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -169,15 +175,19 @@ def traversal_on_tree(timer, parity, module, table, rays, n_rays):
     median of 7."""
     kernel, _ = engine_of(module)
     two = module.KERNEL_NAME == "trace_bvh2"
+    compressed = table.shape[1] == 52  # K1c: trace_bvh4.compress_tables4 records
     per_pop, per_leaf = ((LOADED_BYTES_PER_POP2, LOADED_BYTES_PER_LEAF_TEST2) if two
-                         else (LOADED_BYTES_PER_POP, LOADED_BYTES_PER_LEAF_TEST))
-    roof_kw = dict(record_bytes=RECORD_BYTES2, ops_per_pop=OPS_PER_POP2,
-                   ops_per_leaf_test=OPS_PER_LEAF_TEST2) if two else {}
+                         else (LOADED_BYTES_PER_POP_C if compressed else LOADED_BYTES_PER_POP,
+                               LOADED_BYTES_PER_LEAF_TEST))
+    roof_kw = (dict(record_bytes=RECORD_BYTES2, ops_per_pop=OPS_PER_POP2,
+                    ops_per_leaf_test=OPS_PER_LEAF_TEST2) if two
+               else dict(record_bytes=RECORD_BYTES_C) if compressed else {})
     out = {}
     for name, (o, d, thr) in rays.items():
         work = {}
         st, _, _, steps = compare_kernel_with_plain(
-            f"{module.KERNEL_NAME}: {name} rays", module, parity, table, o, d,
+            f"{module.KERNEL_NAME}{' compressed' if compressed else ''}: {name} rays",
+            module, parity, table, o, d,
             thresh=thr, work=work, timer=timer)
         pops, leaf = int(steps.sum()), work["leaf_tests"]
         ms = timer.median_ms(lambda: kernel(table, o, d, anyhit_thresh=thr),
@@ -536,6 +546,63 @@ def traversal_entry(on_tree, name, replaces, function, launches, slots, n_rays):
     }
 
 
+def run_compressed_records(rt, timer, parity, scene, tree, rays, table, n_rays):
+    """K1c, the compressed-record entry point of ``csrc/trace_bvh4.cu``, at
+    the main path's shapes: the path a caller takes,
+    ``trace_rays(scene, bvh, o, d, tables=compress_tables4(prepare_tables4(...)))``,
+    for the frame's primary and shadow rays, driven with the count set to 0
+    just before and read just after; then the kernel against its plain
+    version (`traversal_on_tree`, bit for bit, records popped included) and
+    in turns with K1 on the same primary rays.  Returns (launches, fields)."""
+    from unitysimpleraytracing_tpu_torch.ops import dispatch, trace_bvh4
+
+    K1 = trace_bvh4.traverse_bvh4
+    comp = trace_bvh4.compress_tables4(table)
+    (po, pd, _), (so, sd, thr) = rays["primary"], rays["shadow"]
+    K1.compressed_launches = 0
+    primary = dispatch.trace_rays(scene, tree, po, pd, tables=comp)
+    shadow = dispatch.trace_rays(scene, tree, so, sd, tables=comp, anyhit_thresh=thr)
+    torch.cuda.synchronize()
+    launches = K1.compressed_launches
+    assert launches == 2, f"the compressed path launched K1c {launches} times, not 2"
+    full = dispatch.trace_rays(scene, tree, po, pd, tables=table)
+    full_shadow = dispatch.trace_rays(scene, tree, so, sd, tables=table, anyhit_thresh=thr)
+    on_tree = traversal_on_tree(timer, parity, trace_bvh4, comp, rays, n_rays)
+    turns = [[name, timer.median_ms(fn, iters=7, cold=True, queued=True)]
+             for name, fn in (("k1", lambda: K1(table, po, pd)), ("k1c", lambda: K1(comp, po, pd)),
+                              ("k1c", lambda: K1(comp, po, pd)), ("k1", lambda: K1(table, po, pd)))]
+    return launches, {
+        "records": int(comp.shape[0]), "record_bytes": RECORD_BYTES_C,
+        "table_mb": comp.numel() * 4 / 2**20, "table_mb_uncompressed": table.numel() * 4 / 2**20,
+        "launches_on_the_path": launches, "kernel": on_tree,
+        "primary_rays_where_t_or_tri_differ_from_k1": int(
+            ((primary.t != full.t) | (primary.tri != full.tri)).sum()),
+        "shadow_rays_where_occlusion_differs_from_k1": int(
+            ((shadow.hit & (shadow.t < thr)) != (full_shadow.hit & (full_shadow.t < thr))).sum()),
+        "primary_ms_in_turns_cold_l2": turns,
+        "k1c_over_k1": (turns[1][1] + turns[2][1]) / (turns[0][1] + turns[3][1]),
+    }
+
+
+def compressed_entry(k1c, launches, n_rays):
+    """The ``kernels`` line's entry of K1c (primary rays, default tree)."""
+    p, s = k1c["kernel"]["primary"], k1c["kernel"]["shadow"]
+    return {
+        "name": "trace_bvh4_compressed", "route": "cuda",
+        "source": "unitysimpleraytracing_tpu_torch/csrc/trace_bvh4.cu",
+        "replaces": "unitysimpleraytracing_tpu/ops/trace_pallas4.py:366",
+        "replaces_function": "ops/trace_pallas4.py::_make_kernel4(compress=True)",
+        "launches": launches,
+        "max_abs_err": max(p["compare"]["max_abs_err"], s["compare"]["max_abs_err"]),
+        "ms": p["ms_cold_l2"], "ms_shadow": s["ms_cold_l2"], "plain_ms": p["plain_ms"],
+        "records_per_ray": p["records_per_ray"], "loaded_bytes": p["loaded_bytes"],
+        "bound_ms": p["bound_ms"], "bound_by": p["bound_by"], "bound_ms_shadow": s["bound_ms"],
+        "library_ms": None,
+        "shape": f"{n_rays} primary rays over the default tree's ({k1c['records']}, 52) "
+                 "float32 compressed table",
+    }
+
+
 def kernel_cases_65k(rt, timer, module, table, soup_table, s65):
     """One traversal kernel (``module`` = ops/trace_bvh4 or ops/trace_bvh2)
     against its plain version at the 65,522-triangle terrain / 512x512 and
@@ -746,6 +813,208 @@ def run_dynamic_path(rt, timer, scene, bvh, cam, tex, bg, W, H, main_image):
         "animated": animated, "animated_frame_ms_in_turns": turns,
         "timing": "CUDA events, median of 3 (batches) or 5 after a warm-up",
     }
+
+
+def run_chunked_path(rt, timer, smi, tex, bg, W, H, out_dir):
+    """Large scenes: the 4,193,408-triangle terrain, above the single-tree
+    limit of 2,097,151, through ``build_bvh_chunked`` (26 chunks of 163,840,
+    "sah") and ``render_frame_chunked`` at 1920x1056 with shadows, driven
+    with K1's launch count set to 0 just before the frame and read just
+    after; K1 against its plain version through ``trace_chunked`` at the
+    frame's own shapes (all 2,027,520 tile-major primary rays with the fold's
+    ``t_init``, then the shadow rays' any-hit pass), bit for bit, and on
+    4,096 of the frame's rays against ``brute_force_trace`` under the parity
+    contract.  At 1,048,352 triangles: one tree against chunks (the CLI's
+    switch point), binary chunk records (K2, held to its plain version at
+    the frame's shapes the same way), and a save → load → trace round trip
+    of the chunked checkpoint.  Emits ``chunked_path``."""
+    from unitysimpleraytracing_tpu_torch.core.camera import generate_rays
+    from unitysimpleraytracing_tpu_torch.io import checkpoint
+    from unitysimpleraytracing_tpu_torch.io.png import write_png
+    from unitysimpleraytracing_tpu_torch.ops import dispatch, trace, trace_bvh2, trace_bvh4
+    from unitysimpleraytracing_tpu_torch.pipeline import chunked
+    from unitysimpleraytracing_tpu_torch.utils import parity
+
+    K1, K2 = trace_bvh4.traverse_bvh4, trace_bvh2.traverse_bvh2
+    t_phase = time.perf_counter()
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def pick_rays(cam, n=4096):
+        o, d = generate_rays(cam)
+        pick = torch.linspace(0, cam.width * cam.height - 1, n, device="cuda").long()
+        return o[pick].contiguous(), d[pick].contiguous()
+
+    def bit_identical(got, want, what):
+        for f in ("t", "tri", "u", "v"):
+            g, w = getattr(got, f), getattr(want, f)
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            assert torch.equal(g, w), f"{what}: {f} differs"
+        return True
+
+    def frame_kernel_vs_plain(cb, cam_, kernel, plain):
+        """The kernel against its plain version on the inputs the chunked
+        frame gives it: every tile-major primary ray (not routed, ``t_init``
+        from the fold), then the shadow rays' backward any-hit pass (routed),
+        made from the kernel's hits as `render_rgba_chunked` makes them."""
+        t0 = time.perf_counter()
+        o, d = generate_rays(cam_)
+        h, w = cam_.height, cam_.width
+        ot, dt = dispatch._tile_major(o, h, w, 32), dispatch._tile_major(d, h, w, 32)
+        del o, d
+        got = rt.trace_chunked(cb, ot, dt, impl=kernel, route=False)
+        bit_identical(got, rt.trace_chunked(cb, ot, dt, impl=plain, route=False),
+                      f"trace_chunked {kernel} vs {plain}, primary rays")
+        so, sd, bound = chunked._shadow_rays_chunked(cb, got, ot, dt)
+        bo, bd, thresh, limit = chunked.occlusion_rays_chunked(cb, so, sd, origin_bound=bound)
+        del so, sd
+        shadow = rt.trace_chunked(cb, bo, bd, impl=kernel, anyhit_thresh=thresh)
+        bit_identical(shadow, rt.trace_chunked(cb, bo, bd, impl=plain, anyhit_thresh=thresh),
+                      f"trace_chunked {kernel} vs {plain}, shadow rays")
+        torch.cuda.synchronize()
+        return {f"{kernel}_bit_identical_to_{plain}": True, "rays_per_pass": int(ot.shape[0]),
+                "primary_hits": int(got.hit.sum()), "occluded": int((shadow.hit & (shadow.t < limit) & got.hit).sum()),
+                "seconds": time.perf_counter() - t0}
+
+    # -- 4,193,408 triangles in 26 chunks --------------------------------------
+    mesh = rt.terrain_mesh(res=1449, size=600.0, amplitude=60.0, seed=3)
+    assert mesh.num_triangles == 4193408, mesh.num_triangles
+    scene, ingest_ms = host_ms(lambda: rt.build_scene(mesh))
+    del mesh
+    cbvh, build_ms = host_ms(lambda: rt.build_bvh_chunked(scene))
+    S = cbvh.num_chunks
+    assert S == 26 and cbvh.capacity <= 163840, (S, cbvh.capacity)
+    assert scene.capacity > dispatch.MAX_CAPACITY
+    cam = rt.make_camera(eye=(420.0, 340.0, 520.0), target=(0.0, 0.0, 0.0), width=W, height=H)
+    K1.launches = 0
+    frame = rt.render_frame_chunked(scene, cbvh, cam, tex, bg, shadows=True)
+    torch.cuda.synchronize()
+    frame_launches = K1.launches
+    assert frame_launches == 2 * S, f"the chunked frame launched K1 {frame_launches} times"
+    image = rt.frame_to_image(frame)
+    assert image.shape == (H, W, 4) and np.isfinite(image).all()
+    png = os.path.join(out_dir, "chip_smoke_4m_chunked_1920x1056.png")
+    write_png(png, image)
+    hits = rt.render_hits_chunked(scene, cbvh, cam)
+    hit_fraction = float(hits.hit.float().mean())
+    assert 0.05 < hit_fraction < 0.95, hit_fraction
+    # Pixels that miss where their four neighbours hit: Möller–Trumbore is not
+    # watertight (a ray through a shared edge can fail both triangles' u, v
+    # tests), as in the reference.  Each such ray must miss every triangle.
+    hm = hits.hit.reshape(H, W)
+    crack = torch.zeros_like(hm)
+    crack[1:-1, 1:-1] = (~hm[1:-1, 1:-1] & hm[:-2, 1:-1] & hm[2:, 1:-1]
+                         & hm[1:-1, :-2] & hm[1:-1, 2:])
+    o_all, d_all = generate_rays(cam)
+    idx = crack.reshape(-1).nonzero()[:, 0]
+    cracks = {"pixels": int(idx.numel())}
+    if idx.numel():
+        brute_cracks = trace.brute_force_trace(
+            scene, o_all[idx].contiguous(), d_all[idx].contiguous(), chunk=16384)
+        cracks["missing_every_triangle"] = int((~brute_cracks.hit).sum())
+        assert cracks["missing_every_triangle"] == cracks["pixels"], cracks
+    del o_all, d_all
+    frame_ms = timer.median_ms(
+        lambda: rt.render_frame_chunked(scene, cbvh, cam, tex, bg, shadows=True), iters=3)
+    oo, dd = pick_rays(cam)
+    got = rt.trace_chunked(cbvh, oo, dd, impl="cuda4")
+    want = rt.trace_chunked(cbvh, oo, dd, impl="plain4")
+    torch.cuda.synchronize()
+    kernel_vs_plain = bit_identical(got, want, "trace_chunked cuda4 vs plain4")
+    frame_vs_plain = frame_kernel_vs_plain(cbvh, cam, "cuda4", "plain4")
+    brute = trace.brute_force_trace(scene, oo, dd, chunk=16384)
+    vs_brute = parity.assert_hit_parity(np_hits(got), np_hits(brute), uv_atol=1e-5)
+    table_mb = cbvh.tables.numel() * 4 / 2**20
+    cbvh_capacity = cbvh.capacity
+    del frame, hits, cbvh, scene, brute
+    torch.cuda.empty_cache()
+
+    # -- 1,048,352 triangles: one tree against chunks ---------------------------
+    mesh = rt.terrain_mesh(res=725, size=300.0, amplitude=30.0, seed=0)
+    assert mesh.num_triangles == 1048352
+    scene = rt.build_scene(mesh)
+    cam1 = rt.make_camera(eye=(210.0, 170.0, 260.0), target=(0.0, 0.0, 0.0), width=W, height=H)
+    tree, tree_build_ms = host_ms(lambda: rt.build_bvh(scene))
+    chunks, chunks_build_ms = host_ms(lambda: rt.build_bvh_chunked(scene))
+    S1 = chunks.num_chunks
+    one = rt.render_frame(scene, tree, cam1, tex, bg, shadows=True)
+    K1.launches = 0
+    many = rt.render_frame_chunked(scene, chunks, cam1, tex, bg, shadows=True)
+    torch.cuda.synchronize()
+    assert K1.launches == 2 * S1, K1.launches
+    frac_chunks_vs_tree = parity.compare_images(
+        parity.frame_to_uint8(rt.frame_to_image(many)),
+        parity.frame_to_uint8(rt.frame_to_image(one)), "chunks vs one tree, 1M")
+    fns = {"one_tree": lambda: rt.render_frame(scene, tree, cam1, tex, bg, shadows=True),
+           "chunks": lambda: rt.render_frame_chunked(scene, chunks, cam1, tex, bg,
+                                                     shadows=True)}
+    turns = [[k, timer.median_ms(fns[k], iters=3)]
+             for k in ("one_tree", "chunks", "chunks", "one_tree")]
+
+    # Binary chunk records (K2) at this depth, against the BVH4 chunks' frame.
+    chunks2, chunks2_build_ms = host_ms(
+        lambda: rt.build_bvh_chunked(scene, record_format="bvh2"))
+    K2.launches = 0
+    many2 = rt.render_frame_chunked(scene, chunks2, cam1, tex, bg, shadows=True)
+    torch.cuda.synchronize()
+    assert K2.launches == 2 * S1, K2.launches
+    frac_bvh2 = parity.compare_images(
+        parity.frame_to_uint8(rt.frame_to_image(many2)),
+        parity.frame_to_uint8(rt.frame_to_image(many)), "bvh2 chunks vs bvh4 chunks, 1M")
+    oo, dd = pick_rays(cam1)
+    bvh2_vs_plain = bit_identical(rt.trace_chunked(chunks2, oo, dd, impl="cuda2"),
+                                  rt.trace_chunked(chunks2, oo, dd, impl="plain2"),
+                                  "trace_chunked cuda2 vs plain2")
+    bvh2_frame_vs_plain = frame_kernel_vs_plain(chunks2, cam1, "cuda2", "plain2")
+    bvh2_frame_ms = timer.median_ms(
+        lambda: rt.render_frame_chunked(scene, chunks2, cam1, tex, bg, shadows=True), iters=3)
+    del chunks2, many2, one
+
+    # Save → load → trace round trip of the chunked checkpoint.
+    path = os.path.join(out_dir, "chunked_1m.npz")
+    _, save_ms = host_ms(lambda: checkpoint.save_chunked_checkpoint(path, chunks))
+    file_mb = os.path.getsize(path) / 2**20
+    restored, load_ms = host_ms(lambda: checkpoint.load_chunked_checkpoint(path))
+    os.remove(path)
+    round_trip = bit_identical(rt.trace_chunked(restored, oo, dd),
+                               rt.trace_chunked(chunks, oo, dd), "checkpoint round trip")
+    round_trip = round_trip and torch.equal(restored.tables, chunks.tables)
+    del restored, chunks, tree, many, scene
+    torch.cuda.empty_cache()
+
+    emit("chunked_path", triangles=4193408, chunks=S, chunk_capacity=163840,
+         triangles_per_chunk_padded=cbvh_capacity, builder="sah",
+         width=W, height=H, shadows=True, png=png, nvidia_smi=smi,
+         ingest_ms_host_clock=ingest_ms, build_ms_host_clock=build_ms,
+         frame_ms=frame_ms, k1_launches_per_frame=frame_launches,
+         table_mb=table_mb, hit_fraction=hit_fraction,
+         isolated_miss_pixels_checked_by_brute_force=cracks,
+         trace_chunked_4096_rays={"cuda4_bit_identical_to_plain4": kernel_vs_plain,
+                                  "parity_vs_brute_force": vs_brute},
+         trace_chunked_frame_rays=frame_vs_plain,
+         one_tree_vs_chunks_1m={
+             "triangles": 1048352, "chunks": S1, "width": W, "height": H, "shadows": True,
+             "build_ms_host_clock": {"one_tree_sah_free": tree_build_ms,
+                                     "chunks_sah": chunks_build_ms},
+             "frame_ms_in_turns": turns,
+             "chunks_vs_one_tree_fraction_off_by_more_than_2_of_255": frac_chunks_vs_tree},
+         bvh2_chunks_1m={"build_ms_host_clock": chunks2_build_ms,
+                         "k2_launches_per_frame": 2 * S1, "frame_ms": bvh2_frame_ms,
+                         "cuda2_bit_identical_to_plain2": bvh2_vs_plain,
+                         "frame_rays": bvh2_frame_vs_plain,
+                         "vs_bvh4_chunks_fraction_off_by_more_than_2_of_255": frac_bvh2},
+         checkpoint_round_trip_1m={"equal": round_trip, "file_mb": file_mb,
+                                   "save_ms": save_ms, "load_ms": load_ms},
+         timing="frames: CUDA events, median of 3 after a warm-up; builds and the "
+                "checkpoint: host clock to a synchronize",
+         seconds=time.perf_counter() - t_phase)
+    return frame_launches
 
 
 def run_probe_slice(smi, timer):
@@ -1278,7 +1547,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     on_tree, rays_of, tables_of = {}, {}, {}
-    for label, tree in (("default", rt.build_bvh(scene)), ("karras", bvh)):
+    default_tree = rt.build_bvh(scene)
+    for label, tree in (("default", default_tree), ("karras", bvh)):
         rays_of[label] = main_path_rays(tree)
         tables_of[label] = (trace_bvh4.prepare_tables4(scene, tree),
                             trace_bvh2.prepare_tables(scene, tree))
@@ -1310,7 +1580,12 @@ def main() -> int:
          timing="CUDA events, median of 7 after a warm-up, the device held while the host "
                 "enqueues; plain versions one run",
          nvidia_smi=smi)
-    del t4, t2, tables_of, rays_of, o, d
+    # ---- 4b. K1c: the compressed-record variant on the default tree -------
+    k1c_launches, k1c = run_compressed_records(
+        rt, timer, parity, scene, default_tree, rays_of["default"],
+        tables_of["default"][0], n_rays)
+    emit("compressed_records", triangles=mesh.num_triangles, nvidia_smi=smi, **k1c)
+    del t4, t2, tables_of, rays_of, o, d, default_tree
     if args.profile:
         emit("profile_260k_frame_with_shadows", nvidia_smi=smi, **profile_frames(
             lambda: rt.render_frame(scene, bvh, cam, tex, bg, shadows=True), frame_ms))
@@ -1412,6 +1687,9 @@ def main() -> int:
     # ---- 9. the default build (SAH builders) at full width ------------------
     run_sah_path(rt, timer, smi, tex, bg, W, H, args.profile)
 
+    # ---- 9b. large scenes: chunked build, trace and frames ------------------
+    run_chunked_path(rt, timer, smi, tex, bg, W, H, out_dir)
+
     # ---- 10. kernels ------------------------------------------------------
     print(smi, flush=True)
     print(json.dumps({"kernels": [
@@ -1420,6 +1698,7 @@ def main() -> int:
         traversal_entry(on_tree, "trace_bvh2", "ops/trace_pallas.py:272",
                         "ops/trace_pallas.py::_make_kernel", dyn_launches["trace_bvh2"], 32,
                         n_rays),
+        compressed_entry(k1c, k1c_launches, n_rays),
         *sort_entries, *probe_entries]}), flush=True)
     emit("done", seconds=time.perf_counter() - t_script)
     print(json.dumps({"ok": True, "device": {

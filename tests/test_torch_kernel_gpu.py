@@ -315,6 +315,38 @@ def test_scan_replays_from_a_cuda_graph(card):
         assert torch.equal(got_y, scan.exclusive_scan_plain(y)), i
 
 
+def test_scan_replays_after_a_larger_eager_call(card):
+    """A graph captured at one size replays right after an eager call of MORE
+    tiles has grown the stream's scratch: the words the capture used stay
+    alive, and the eager calls move to the new words."""
+    n = 65536 + 3
+    static_x = torch.zeros(n, dtype=torch.int32, device=card)
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        scan.exclusive_scan(static_x)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        static_out = scan.exclusive_scan(static_x)
+    scratch = scan._SCRATCH[(static_x.device.index, s.cuda_stream)]
+    captured_words = scratch.words
+    rng = np.random.default_rng(12)
+    for i, big in enumerate((1 << 22) + 7 + np.arange(3) * 4096 * 300):
+        y = _scan_inputs(int(big), torch.int32, card)[0]
+        x = torch.from_numpy(rng.integers(-1000, 1025, size=n).astype(np.int32)).to(card)
+        with torch.cuda.stream(s):
+            got_y = scan.exclusive_scan(y)  # more tiles: the scratch grows
+            static_x.copy_(x)
+            g.replay()
+            got_y2 = scan.exclusive_scan(y)
+        torch.cuda.synchronize()
+        assert torch.equal(static_out, scan.exclusive_scan_plain(x)), i
+        assert torch.equal(got_y, scan.exclusive_scan_plain(y)), i
+        assert torch.equal(got_y2, got_y), i
+    assert any(w is captured_words for w in scratch.kept)
+    assert scratch.words is not captured_words
+
+
 def test_scan_float_within_tolerance(card):
     rng = np.random.default_rng(1)
     x = rng.normal(size=(1 << 20) + 77).astype(np.float32)
@@ -570,3 +602,62 @@ def test_profiling_times_on_the_card(card):
     assert 0 < prof.stats[0].roofline_fraction() < 1.5
     timer = profiling.Timer()
     assert timer.median_ms(lambda: x * 2.0, cold=True) > 0
+
+
+# ---- K1c (compressed records) and the chunked path ---------------------------------
+
+
+@pytest.mark.parametrize("scene_name", ["soup", "terrain"])
+def test_compressed_kernel_bit_identical_to_plain(card, scene_name):
+    """The 52-slot entry point against the plain 52-slot walk: t, tri, u, v
+    and the records popped per ray, for nearest hit, any-hit, t_init and a
+    ragged ray count; its launches are counted apart from K1's."""
+    mesh = {
+        "soup": lambda: pt.random_triangle_soup(3000, seed=7, bound=5.0, tri_size=1.0),
+        "terrain": lambda: pt.terrain_mesh(res=64, size=20.0, amplitude=4.0, seed=0),
+    }[scene_name]()
+    scene = pt.build_scene(mesh)
+    table = trace_bvh4.compress_tables4(trace_bvh4.prepare_tables4(scene, pt.build_bvh(scene)))
+    assert table.shape[1] == 52
+    o, d = _rays(10000, seed=3, bound=8.0, dev=card)
+    thr = torch.full((10000,), 9.0, device=card)
+    before = (trace_bvh4.traverse_bvh4.launches, trace_bvh4.traverse_bvh4.compressed_launches)
+    for kw in ({}, {"anyhit_thresh": thr}):
+        got, steps = trace_bvh4.traverse_bvh4(table, o, d, count_steps=True, **kw)
+        want, wsteps = trace_bvh4.traverse_bvh4_plain(table, o, d, count_steps=True, **kw)
+        _assert_same_bits(got, want)
+        assert torch.equal(steps, wsteps)
+    seed_t = torch.where(got.hit, got.t + 0.01, got.t)
+    got = trace_bvh4.traverse_bvh4(table, o, d, t_init=seed_t)
+    _assert_same_bits(got, trace_bvh4.traverse_bvh4_plain(table, o, d, t_init=seed_t))
+    got = trace_bvh4.traverse_bvh4(table, o[:1001], d[:1001])
+    _assert_same_bits(got, trace_bvh4.traverse_bvh4_plain(table, o[:1001], d[:1001]))
+    torch.cuda.synchronize()
+    assert trace_bvh4.traverse_bvh4.launches == before[0]
+    assert trace_bvh4.traverse_bvh4.compressed_launches == before[1] + 4
+
+
+@pytest.mark.parametrize("record_format", ["bvh4", "bvh2"])
+def test_chunked_trace_on_the_card_equals_plain(card, record_format):
+    """trace_chunked through the kernels (cuda4 / cuda2) against their plain
+    versions over the same chunks, bit for bit, with routing, compaction and
+    any-hit; one launch per chunk per call."""
+    scene = pt.build_scene(pt.terrain_mesh(res=96, size=40.0, amplitude=6.0, seed=2))
+    cbvh = pt.build_bvh_chunked(scene, chunk_capacity=4096, record_format=record_format)
+    assert cbvh.num_chunks > 3
+    kernel, plain = {"bvh4": ("cuda4", "plain4"), "bvh2": ("cuda2", "plain2")}[record_format]
+    counter = trace_bvh4.traverse_bvh4 if record_format == "bvh4" else trace_bvh2.traverse_bvh2
+    o, d = _rays(8000, seed=4, bound=30.0, dev=card)
+    thr = torch.full((8000,), 25.0, device=card)
+    for kw in ({"route": False}, {"route": True, "compact": 1}, {"anyhit_thresh": thr}):
+        before = counter.launches
+        got = pt.trace_chunked(cbvh, o, d, impl=kernel, **kw)
+        torch.cuda.synchronize()
+        assert counter.launches - before == cbvh.num_chunks
+        _assert_same_bits(got, pt.trace_chunked(cbvh, o, d, impl=plain, **kw))
+    cam = pt.make_camera(eye=(30, 25, 38), target=(0, 0, 0), width=128, height=96)
+    tex = pt.solid_texture((0.9, 0.6, 0.3, 1.0))
+    bg = np.asarray([0.1, 0.1, 0.12], np.float32)
+    a = pt.render_frame_chunked(scene, cbvh, cam, tex, bg, shadows=True)
+    b = pt.render_frame_chunked(scene, cbvh, cam, tex, bg, impl=plain, shadows=True)
+    assert torch.equal(a, b)

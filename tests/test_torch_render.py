@@ -211,7 +211,8 @@ def test_cli_builder_choices_are_the_jax_cli_s(tmp_path, capsys):
 
 
 @pytest.mark.parametrize(
-    "flag", [["--gizmo", "--gizmo-index", "3"], ["--bvh-cache", "x.npz"], ["--gizmo"], ["--gizmo-tris"]])
+    "flag", [["--gizmo", "--gizmo-index", "3"], ["--gizmo-tris", "--gizmo-index", "0"],
+             ["--gizmo"], ["--gizmo-tris"]])
 def test_cli_unported_options_exit_with_message(tmp_path, capsys, flag):
     obj = tmp_path / "pyramid.obj"
     obj.write_text(_OBJ)

@@ -126,6 +126,23 @@ def test_scratch_is_sized_by_tiles_and_passes_no_per_call_state():
         sc.reserve(0)
 
 
+def test_scratch_a_capture_used_outlives_growth():
+    """Words that a CUDA graph capture used are kept alive when a larger call
+    grows the scratch (the graph still holds their pointer); words no capture
+    saw are let go."""
+    sc = pscan.ScanScratch("cpu")
+    first, _ = sc.reserve(4)
+    second, _ = sc.reserve(9)  # no capture saw `first`: not kept
+    assert second is not first and sc.kept == []
+    w, cap = sc.reserve(9, capturing=True)
+    assert w is second and cap == 9 and sc.captured
+    third, cap = sc.reserve(40)  # grown after a capture
+    assert third is not second and cap == 40 and not sc.captured
+    assert len(sc.kept) == 1 and sc.kept[0] is second
+    fourth, _ = sc.reserve(100)  # no capture saw `third`
+    assert fourth is not third and len(sc.kept) == 1
+
+
 def test_scratch_starts_afresh_before_the_epochs_run_out():
     """After `CALLS_PER_FILL` calls the same words are zero-filled in place,
     before a status word's 30-bit epoch can come round to this call's."""

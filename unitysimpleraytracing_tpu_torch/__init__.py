@@ -3,7 +3,8 @@
 The counterpart of ``unitysimpleraytracing_tpu`` (JAX/Pallas), module for
 module: GPU sort → Karras LBVH → BVH4 or binary record tables → per-ray
 traversal by a hand-written CUDA kernel → shaded, composited image, one frame
-at a time, in batches of frames, or refit per frame for a deforming mesh.  The port imports torch
+at a time, in batches of frames, refit per frame for a deforming mesh, or, for
+scenes too large for one tree, built and traced in chunks.  The port imports torch
 and numpy only; it never imports the JAX package.  Entry points that create
 tensors take ``device=None``, which means the card and raises without one.
 """
@@ -31,6 +32,16 @@ from unitysimpleraytracing_tpu_torch.pipeline.build import (
     deform_scene,
     refit_bvh,
 )
+from unitysimpleraytracing_tpu_torch.pipeline.chunked import (
+    ChunkedBvh,
+    build_bvh_chunked,
+    occluded_chunked,
+    render_frame_chunked,
+    render_frames_chunked,
+    render_hits_chunked,
+    render_rgba_chunked,
+    trace_chunked,
+)
 from unitysimpleraytracing_tpu_torch.pipeline.render import (
     frame_to_image,
     make_animated_renderer,
@@ -50,8 +61,16 @@ __all__ = [
     "Scene",
     "Texture",
     "Triangles",
+    "ChunkedBvh",
     "build_bvh",
+    "build_bvh_chunked",
     "deform_scene",
+    "occluded_chunked",
+    "render_frame_chunked",
+    "render_frames_chunked",
+    "render_hits_chunked",
+    "render_rgba_chunked",
+    "trace_chunked",
     "refit_bvh",
     "build_scene",
     "constants",

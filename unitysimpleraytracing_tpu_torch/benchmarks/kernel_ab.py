@@ -1,6 +1,6 @@
-"""K1 (BVH4 traversal), K5 (exclusive scan) and the frame with shadows, timed
-through the package's public entry points, to compare two checkouts on one
-card in turns.
+"""K1 (BVH4 traversal), K1c (its compressed-record variant), K5 (exclusive
+scan) and the frame with shadows, timed through the package's public entry
+points, to compare two checkouts on one card in turns.
 
     python unitysimpleraytracing_tpu_torch/benchmarks/kernel_ab.py \\
         [--root DIR] [--iters 7] [--out FILE]
@@ -17,7 +17,9 @@ path so that an older package can be measured: CUDA events, the device held
 while the host enqueues, median of ``--iters``; kernels with a cold L2 (and
 K1's primary rays with a warm one too), the frame at the host's pace, as it
 runs.  Cases: config 3 (260,642 triangles, 1920x1056 = 2,027,520 rays), K1 on
-the default (``sah_free``) and the Karras tree, primary and shadow rays; K5
+the default (``sah_free``) and the Karras tree, primary and shadow rays; K1c
+against K1 in turns (K1, K1c, K1c, K1) on the same rays of the default tree,
+where the checkout has ``compress_tables4`` (``k1c``); K5
 at 262,144 and 65,280 int32 (the sort's histograms at 1 M keys and at 260,642
 triangles), in turns with ``torch.cumsum``; the frame with shadows on the
 default tree.  Each K1 and K5 case carries a digest of what the kernel
@@ -80,6 +82,22 @@ def _in_turns(timer, fns: dict, iters: int, **kw) -> dict:
     return out
 
 
+def _compressed_in_turns(timer, trace_bvh4, table, o, d, thr, iters, **kw) -> dict:
+    """K1c against K1 on the same rays, in turns, with K1c's digest and the
+    bytes of the two tables."""
+    comp = trace_bvh4.compress_tables4(table)
+    got, steps = trace_bvh4.traverse_bvh4(comp, o, d, anyhit_thresh=thr, count_steps=True)
+    fns = {"k1": lambda: trace_bvh4.traverse_bvh4(table, o, d, anyhit_thresh=thr),
+           "k1c": lambda: trace_bvh4.traverse_bvh4(comp, o, d, anyhit_thresh=thr)}
+    turns = _in_turns(timer, fns, iters, **kw)
+    return {"records": int(comp.shape[0]), "pops": int(steps.sum()),
+            "table_bytes": {"k1": table.numel() * 4, "k1c": comp.numel() * 4},
+            "digest": digest(got.t.view(torch.int32), got.tri, got.u.view(torch.int32),
+                             got.v.view(torch.int32), steps),
+            "ms_cold_l2_in_turns": turns,
+            "k1c_over_k1": sum(turns["k1c"]) / sum(turns["k1"])}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(THIS_PKG),
@@ -132,6 +150,9 @@ def main(argv=None) -> dict:
             if rays == "primary":
                 case["ms_warm_l2"] = timer.median_ms(call, iters=args.iters, queued=True)
             line["k1"][tree][rays] = case
+            if tree == "default" and hasattr(trace_bvh4, "compress_tables4"):
+                line.setdefault("k1c", {})[rays] = _compressed_in_turns(
+                    timer, trace_bvh4, table, ro, rd, rthr, args.iters, **cold)
 
     # ---- the frame with shadows, default tree -----------------------------------
     tex = rt.solid_texture((0.8, 0.7, 0.6, 1.0))

@@ -12,11 +12,24 @@ steady-state per-frame ms is reported.  ``--orbit-batch`` renders the orbit in
 groups of frames, each group ONE primary and ONE shadow traversal
 (`render_frames`).  ``--background-image`` composites over a real image
 instead of a solid color (ImageComposer.shader:44-53).
+
+A mesh of more than `CHUNKED_ABOVE` triangles (580,000, the JAX CLI's switch
+point) is built in chunks of 163,840 triangles, one tree each
+(`build_bvh_chunked`), and rendered through `render_frame_chunked` /
+`render_frames_chunked`; below it the scene is one tree.  ``--bvh-cache
+PATH.npz`` restores the built tree (or chunks) from PATH if it exists, else
+builds and saves it there (`io/checkpoint`, the same files as the JAX CLI's).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
+
+# Above this many triangles the scene is built and traced in chunks; the
+# JAX CLI's switch point (its PACKED4_MAX_CAPACITY).  PERF.md section 5 has
+# the port's own measurement of one tree against chunks at 1,048,352.
+CHUNKED_ABOVE = 580_000
 
 
 def orbit_eyes(eye, target, n: int):
@@ -48,7 +61,6 @@ def _resize_nearest(img, h: int, w: int):
 
 
 _NOT_PORTED = {
-    "bvh_cache": "--bvh-cache (io/checkpoint)",
     "gizmo": "--gizmo (utils/visualize)",
     "gizmo_tris": "--gizmo-tris (utils/visualize)",
 }
@@ -88,9 +100,10 @@ def main(argv=None) -> None:
     ap.add_argument(
         "--builder", default=None, choices=["karras", "sah"],
         help="BVH topology: default = build_bvh's default (free-order "
-        "sweep SAH); 'karras' = the reference's radix tree "
-        "(BVH.compute:94-149); 'sah' = sweep SAH over the Morton order "
-        "(lower SAH cost → fewer box tests per ray; ops/sah.py)",
+        "sweep SAH; 'sah' per chunk for a chunked scene); 'karras' = the "
+        "reference's radix tree (BVH.compute:94-149); 'sah' = sweep SAH "
+        "over the Morton order (lower SAH cost → fewer box tests per ray; "
+        "ops/sah.py)",
     )
     ap.add_argument("--shadows", action="store_true", help="shadow-ray pass")
     ap.add_argument(
@@ -100,10 +113,16 @@ def main(argv=None) -> None:
     ap.add_argument(
         "--orbit-batch", action="store_true",
         help="with --orbit: render groups of frames as ONE batched ray "
-        "dispatch each (render_frames) instead of per-frame calls — "
-        "offline throughput mode; steady ms/frame excludes the first group",
+        "dispatch each (render_frames; render_frames_chunked for a chunked "
+        "scene) instead of per-frame calls — offline throughput mode; "
+        "steady ms/frame excludes the first group",
     )
-    ap.add_argument("--bvh-cache", default=None, metavar="PATH.npz", help="not ported yet")
+    ap.add_argument(
+        "--bvh-cache", default=None, metavar="PATH.npz",
+        help="BVH checkpoint: load the prebuilt BVH (or chunked BVH) from "
+        "PATH if it exists, else build it and save it there (io/checkpoint; "
+        "the same files as the JAX CLI's)",
+    )
     ap.add_argument("--gizmo", action="store_true", help="not ported yet")
     ap.add_argument("--gizmo-tris", action="store_true", help="not ported yet")
     ap.add_argument("--gizmo-index", type=int, default=-1, help="not ported yet")
@@ -117,8 +136,8 @@ def main(argv=None) -> None:
     import torch
 
     import unitysimpleraytracing_tpu_torch as rt
+    from unitysimpleraytracing_tpu_torch.io import checkpoint as ckpt
     from unitysimpleraytracing_tpu_torch.io.png import read_png, write_png
-    from unitysimpleraytracing_tpu_torch.ops.dispatch import MAX_CAPACITY
     from unitysimpleraytracing_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
@@ -134,18 +153,37 @@ def main(argv=None) -> None:
             mesh, levels=args.subdivide, displace=args.displace
         )
     print(f"loaded {mesh.num_triangles} triangles in {time.perf_counter()-t0:.2f}s")
-    if rt.constants.pad_count(mesh.num_triangles) > MAX_CAPACITY:
-        ap.error(
-            f"{mesh.num_triangles} triangles exceed the single-tree envelope "
-            f"({MAX_CAPACITY}); the chunked large-scene path is not ported "
-            "yet (ROADMAP.md, queue 1 item 10)"
-        )
 
     scene = rt.build_scene(mesh, device=device)
+    # Beyond the switch point the scene is built and traced in chunks.
+    chunked = mesh.num_triangles > CHUNKED_ABOVE
+    cached = args.bvh_cache and os.path.exists(args.bvh_cache)
     t0 = time.perf_counter()
-    bvh = rt.build_bvh(scene, builder=args.builder)
-    sync()
-    print(f"BVH built in {time.perf_counter()-t0:.3f}s")
+    if chunked:
+        if cached:
+            cbvh = ckpt.load_chunked_checkpoint(args.bvh_cache, device=device)
+            print(f"chunked BVH restored ({cbvh.num_chunks} chunks) from "
+                  f"{args.bvh_cache} in {time.perf_counter()-t0:.3f}s")
+        else:
+            cbvh = rt.build_bvh_chunked(scene, builder=args.builder)
+            sync()
+            print(f"chunked BVH built ({cbvh.num_chunks} chunks) "
+                  f"in {time.perf_counter()-t0:.3f}s")
+            if args.bvh_cache:
+                ckpt.save_chunked_checkpoint(args.bvh_cache, cbvh)
+                print(f"saved {args.bvh_cache}")
+    else:
+        if cached:
+            scene, bvh = ckpt.load_checkpoint(args.bvh_cache, device=device)
+            print(f"BVH restored from {args.bvh_cache} "
+                  f"in {time.perf_counter()-t0:.3f}s")
+        else:
+            bvh = rt.build_bvh(scene, builder=args.builder)
+            sync()
+            print(f"BVH built in {time.perf_counter()-t0:.3f}s")
+            if args.bvh_cache:
+                ckpt.save_checkpoint(args.bvh_cache, scene, bvh)
+                print(f"saved {args.bvh_cache}")
 
     lo = mesh.positions.min(axis=(0, 1))
     hi = mesh.positions.max(axis=(0, 1))
@@ -178,9 +216,14 @@ def main(argv=None) -> None:
         )
 
     def do_frame(cam):
-        frame = rt.render_frame(
-            scene, bvh, cam, tex, background, shadows=args.shadows
-        )
+        if chunked:
+            frame = rt.render_frame_chunked(
+                scene, cbvh, cam, tex, background, shadows=args.shadows
+            )
+        else:
+            frame = rt.render_frame(
+                scene, bvh, cam, tex, background, shadows=args.shadows
+            )
         sync()
         return frame
 
@@ -212,19 +255,27 @@ def main(argv=None) -> None:
               "falling back to the per-frame loop")
     if batchable:
         # Batched throughput mode: groups of frames flatten into ONE ray
-        # dispatch each (pipeline/render.render_frames), so the per-frame
-        # host and launch overhead is paid once per group.  Solid-color or
-        # image plate both work ((3,) or (H,W,3) background).
+        # dispatch each (pipeline/render.render_frames; past the switch
+        # point render_frames_chunked, every frame's rays sharing one fold
+        # over the chunks), so the per-frame host and launch overhead is
+        # paid once per group.  Solid-color or image plate both work ((3,)
+        # or (H,W,3) background).
         eyes = orbit_eyes(eye, target, args.orbit)
         group = max(1, (1 << 22) // (args.width * args.height))  # ~4M rays
         idx = 0
         for lo in range(0, args.orbit, group):
             cams = [cam_at(e) for e in eyes[lo:lo + group]]
             t0 = time.perf_counter()
-            batch = rt.render_frames(
-                scene, bvh, rt.stack_cameras(cams), tex, background,
-                shadows=args.shadows,
-            )
+            if chunked:
+                batch = rt.render_frames_chunked(
+                    scene, cbvh, rt.stack_cameras(cams), tex, background,
+                    shadows=args.shadows,
+                )
+            else:
+                batch = rt.render_frames(
+                    scene, bvh, rt.stack_cameras(cams), tex, background,
+                    shadows=args.shadows,
+                )
             sync()
             times.append((time.perf_counter() - t0) / len(cams))
             # PNGs written (and frames pulled to host) per group, so device

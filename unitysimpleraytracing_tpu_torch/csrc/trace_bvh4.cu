@@ -29,6 +29,20 @@
 // 32x32 tile-major order, 32 of one pixel row to a warp; 128-thread blocks
 // (55 registers, no spill: 36 resident warps a SM).
 //
+// Compressed records (52 floats = 208 bytes = 13 float4): the second entry
+// point, trace_bvh4c_launch, is the counterpart of the TPU kernel's
+// compress=True form (ops/trace_pallas4.py::_make_kernel4, box decode at
+// :517-522) for the tables of ops/trace_bvh4.py::compress_tables4:
+//   [0, 12)   four child boxes, each three slots (x, y, z); a slot holds the
+//             axis's (min, max) as a bf16 pair, min in the high 16 bits
+//   [12, 16)  four metas
+//   [16, 52)  four pre-differenced triangles
+// It is the same kernel, instantiated for the other record layout: the pairs
+// are unpacked exactly (w & 0xFFFF0000 and w << 16, read as float) and the
+// walk runs unchanged.  Boxes and metas are four 16-byte loads instead of
+// seven; the walk's chain of dependent steps, not bytes, is what bounds K1,
+// so it should gain little (PERF.md has its time beside K1's).
+//
 // Arithmetic contract: compiled with -fmad=false and without fast-math, every
 // product and sum below is a separate IEEE float32 operation in the order
 // written.  The plain PyTorch version (traverse_bvh4_plain) does the same
@@ -56,6 +70,58 @@ __device__ __forceinline__ bool slab_test(
     return (tmax > tmin) && (tmax > 0.0f) && (tmin < t_cur);
 }
 
+// Record layout by format: float4s a record, where the metas and the
+// first vertex slot sit.
+template <bool COMPRESSED> struct Layout;
+template <> struct Layout<false> {
+    static constexpr int kFloat4s = 16, kMeta = 6, kVerts = 28;
+};
+template <> struct Layout<true> {
+    static constexpr int kFloat4s = 13, kMeta = 3, kVerts = 16;
+};
+
+// The four child boxes of a record into b[24] (entry e at b[6e..6e+5]:
+// min xyz, max xyz).
+template <bool COMPRESSED>
+__device__ __forceinline__ void load_boxes(const float4* rec, float* b);
+
+template <>
+__device__ __forceinline__ void load_boxes<false>(const float4* rec, float* b)
+{
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+        const float4 q = __ldg(rec + i);
+        b[4 * i + 0] = q.x;
+        b[4 * i + 1] = q.y;
+        b[4 * i + 2] = q.z;
+        b[4 * i + 3] = q.w;
+    }
+}
+
+template <>
+__device__ __forceinline__ void load_boxes<true>(const float4* rec, float* b)
+{
+    float w[12];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        const float4 q = __ldg(rec + i);
+        w[4 * i + 0] = q.x;
+        w[4 * i + 1] = q.y;
+        w[4 * i + 2] = q.z;
+        w[4 * i + 3] = q.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            const unsigned int u = __float_as_uint(w[3 * e + a]);
+            b[6 * e + a] = __uint_as_float(u & 0xFFFF0000u);
+            b[6 * e + 3 + a] = __uint_as_float(u << 16);
+        }
+    }
+}
+
+template <bool COMPRESSED>
 __global__ void __launch_bounds__(BLOCK_THREADS)
 trace_bvh4_kernel(
     const float4* __restrict__ table,
@@ -100,18 +166,11 @@ trace_bvh4_kernel(
 
     while (true) {
         ++steps;
-        const float4* rec = table + (size_t)k * 16;
+        const float4* rec = table + (size_t)k * Layout<COMPRESSED>::kFloat4s;
 
         float b[24];
-#pragma unroll
-        for (int i = 0; i < 6; ++i) {
-            const float4 q = __ldg(rec + i);
-            b[4 * i + 0] = q.x;
-            b[4 * i + 1] = q.y;
-            b[4 * i + 2] = q.z;
-            b[4 * i + 3] = q.w;
-        }
-        const float4 mq = __ldg(rec + 6);
+        load_boxes<COMPRESSED>(rec, b);
+        const float4 mq = __ldg(rec + Layout<COMPRESSED>::kMeta);
         // Metas are integers below 2^24 stored as floats: the cast is exact.
         const int m[4] = {(int)mq.x, (int)mq.y, (int)mq.z, (int)mq.w};
 
@@ -128,7 +187,8 @@ trace_bvh4_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             if (hit[e] && ((m[e] >> 21) & 1)) {
-                const float* vp = reinterpret_cast<const float*>(rec) + 28 + 9 * e;
+                const float* vp =
+                    reinterpret_cast<const float*>(rec) + Layout<COMPRESSED>::kVerts + 9 * e;
                 const float ax = __ldg(vp + 0), ay = __ldg(vp + 1), az = __ldg(vp + 2);
                 const float e1x = __ldg(vp + 3), e1y = __ldg(vp + 4), e1z = __ldg(vp + 5);
                 const float e2x = __ldg(vp + 6), e2y = __ldg(vp + 7), e2z = __ldg(vp + 8);
@@ -222,9 +282,8 @@ trace_bvh4_kernel(
     if (out_steps) out_steps[r] = steps;
 }
 
-// Plain C entry point, bound with ctypes.  Launches on the given stream, does
-// not synchronise, allocates nothing; returns cudaGetLastError() as an int.
-extern "C" int trace_bvh4_launch(
+template <bool COMPRESSED>
+static int launch(
     const void* table, const void* origins, const void* dirs,
     const void* t_init, const void* thresh,
     void* out_t, void* out_tri, void* out_u, void* out_v, void* out_steps,
@@ -232,10 +291,33 @@ extern "C" int trace_bvh4_launch(
 {
     if (n_rays <= 0) return (int)cudaErrorInvalidValue;
     const int blocks = (n_rays + BLOCK_THREADS - 1) / BLOCK_THREADS;
-    trace_bvh4_kernel<<<blocks, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
+    trace_bvh4_kernel<COMPRESSED><<<blocks, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
         (const float4*)table, (const float*)origins, (const float*)dirs,
         (const float*)t_init, (const float*)thresh,
         (float*)out_t, (int*)out_tri, (float*)out_u, (float*)out_v,
         (int*)out_steps, n_rays);
     return (int)cudaGetLastError();
+}
+
+// Plain C entry points, bound with ctypes: (cap4, 64) records and compressed
+// (cap4, 52) records.  Each launches on the given stream, does not
+// synchronise, allocates nothing; returns cudaGetLastError() as an int.
+extern "C" int trace_bvh4_launch(
+    const void* table, const void* origins, const void* dirs,
+    const void* t_init, const void* thresh,
+    void* out_t, void* out_tri, void* out_u, void* out_v, void* out_steps,
+    int n_rays, void* stream)
+{
+    return launch<false>(table, origins, dirs, t_init, thresh,
+                         out_t, out_tri, out_u, out_v, out_steps, n_rays, stream);
+}
+
+extern "C" int trace_bvh4c_launch(
+    const void* table, const void* origins, const void* dirs,
+    const void* t_init, const void* thresh,
+    void* out_t, void* out_tri, void* out_u, void* out_v, void* out_steps,
+    int n_rays, void* stream)
+{
+    return launch<true>(table, origins, dirs, t_init, thresh,
+                        out_t, out_tri, out_u, out_v, out_steps, n_rays, stream);
 }

@@ -5,8 +5,8 @@ Inputs are plain dicts, or any object with the same field names, of arrays.
 With these a test hands a JAX-built ``Scene``/``Bvh`` to the port's table
 packer, traversal and renderer, and port-built ones back for bit comparison.
 Morton codes are uint32 on the numpy side and int64 inside the port.  Record
-tables, stacked cameras and the (T, 3, 3) corner positions of the animated
-path cross the same way.
+tables, stacked cameras, the (T, 3, 3) corner positions of the animated path
+and the chunked path's partition and trees cross the same way.
 """
 from __future__ import annotations
 
@@ -80,6 +80,60 @@ def table_from_numpy(table, device=None) -> torch.Tensor:
         raise ValueError(
             f"not a float32 (cap, 32) or (cap4, 64) record table: {arr.dtype} {arr.shape}")
     return _tensor(arr, resolve_device(device))
+
+
+def sharded_scene_from_numpy(d, device=None):
+    """A `parallel/dist.ShardedScene` from a dict/object with its 16 field
+    names (``morton`` may be uint32)."""
+    from unitysimpleraytracing_tpu_torch.parallel.dist import ShardedScene
+
+    device = resolve_device(device)
+    kw = {f.name: _tensor(_get(d, f.name), device) for f in dataclasses.fields(ShardedScene)}
+    return ShardedScene(**kw)
+
+
+def chunked_bvh_from_numpy(d, device=None):
+    """A `pipeline/chunked.ChunkedBvh` from a dict/object with fields
+    ``sscene`` (ShardedScene fields), ``bvhs`` (Bvh fields stacked on axis 0,
+    ``count`` = the chunk capacity) and ``tables``.
+
+    The table's layout is read from its shape and checked against chunk 0:
+    (S, cap4, 64) BVH4 records, or binary records, flat (S, cap, 32) or ``pack`` = 2 or 4 to a row as the
+    JAX package may store them, (S, cap/2, 64) or (S, cap/4, 128): the same
+    bytes, reshaped here to (S, cap, 32).  Chunk 0's records are re-packed
+    from its stored tree in each reading the shape allows, and the first
+    reading whose bytes equal the stored ones is taken; a table that matches
+    none raises ``ValueError``, so no table is ever misread."""
+    from unitysimpleraytracing_tpu_torch.ops import trace_bvh2, trace_bvh4
+    from unitysimpleraytracing_tpu_torch.pipeline import chunked
+
+    device = resolve_device(device)
+    sscene = sharded_scene_from_numpy(_get(d, "sscene"), device)
+    bvhs = bvh_from_numpy(_get(d, "bvhs"), device)
+    arr = np.asarray(_get(d, "tables"))
+    S, cap = sscene.num_shards, sscene.shard_capacity
+    if arr.dtype != np.float32 or arr.ndim != 3 or arr.shape[0] != S:
+        raise ValueError(f"not a float32 (S={S}, rows, slots) chunk table: "
+                         f"{arr.dtype} {arr.shape}")
+    rows, width = arr.shape[1:]
+    scene0 = chunked._chunk_scene(sscene, 0, cap)
+    bvh0 = chunked._chunk_bvh(bvhs, 0, cap)
+
+    readings = []
+    if width == 64 and trace_bvh4._node_mask_cached(bvh0)[2] <= rows:
+        readings.append((arr, lambda: trace_bvh4.pack_tables4(scene0, bvh0, cap4=rows)))
+    if width in (32, 64, 128) and rows * width == cap * 32 and cap <= trace_bvh2.MAX_CAPACITY:
+        readings.append((arr.reshape(S, cap, 32),
+                         lambda: trace_bvh2.pack_tables(scene0, bvh0)))
+    for table, repack in readings:
+        want = repack().cpu().numpy()
+        if want.shape == table.shape[1:] and np.array_equal(
+                want.view(np.uint32), table[0].view(np.uint32)):
+            tables = _tensor(np.ascontiguousarray(table), device)
+            return chunked.ChunkedBvh(sscene=sscene, bvhs=bvhs, tables=tables)
+    raise ValueError(
+        f"chunk table {arr.shape} matches neither the BVH4 nor the binary records "
+        f"re-packed from chunk 0's stored tree")
 
 
 def positions_from_numpy(positions, device=None) -> torch.Tensor:

@@ -42,9 +42,12 @@ class CapacityError(ValueError):
 
     The reference makes its envelope explicit by allocating everything at a
     hard 524 288-element cap (Constants.cs:3-6).  The port's envelope is the
-    record meta packing: triangle and record ids below 2^21.  Larger scenes
-    need the chunked path (``build_bvh_chunked`` / ``trace_chunked`` in the
-    JAX package), which is not ported yet (ROADMAP queue 1 item 10)."""
+    record meta packing: triangle and record ids below 2^21 (BVH4 records)
+    or 2^20 (binary records).  Larger scenes take the chunked path:
+    `pipeline/chunked.build_bvh_chunked` splits them into chunks of at most
+    ``chunk_capacity`` triangles, each with its own tree, and
+    `render_frame_chunked` / `trace_chunked` trace them; the same error is
+    raised there when one chunk exceeds the envelope."""
 
 
 def resolve_impl(impl: str, capacity: int, device) -> str:
@@ -53,16 +56,17 @@ def resolve_impl(impl: str, capacity: int, device) -> str:
     if impl in _ENGINES4 and capacity > MAX_CAPACITY:
         raise CapacityError(
             f"scene capacity {capacity} exceeds the single-tree envelope "
-            f"({MAX_CAPACITY} triangles: record metas hold 21-bit ids). The "
-            f"chunked large-scene path is not ported yet (ROADMAP queue 1 "
-            f"item 10); impl='perray' has no such bound."
+            f"({MAX_CAPACITY} triangles: record metas hold 21-bit ids). Build "
+            f"it in chunks with build_bvh_chunked and render it with "
+            f"render_frame_chunked (pipeline/chunked); impl='perray' has no "
+            f"such bound."
         )
     if impl in _ENGINES2 and capacity > trace_bvh2.MAX_CAPACITY:
         raise CapacityError(
             f"scene capacity {capacity} exceeds the binary-record envelope "
             f"({trace_bvh2.MAX_CAPACITY} triangles: record metas hold 20-bit "
-            f"ids). Use impl='cuda4' (BVH4 records, 21-bit ids) or "
-            f"impl='perray'."
+            f"ids). Use impl='cuda4' (BVH4 records, 21-bit ids), "
+            f"build_bvh_chunked (pipeline/chunked) or impl='perray'."
         )
     return impl
 
@@ -82,8 +86,9 @@ def trace_rays(
 
     Rays should arrive in a coherent order (image-tile order for camera rays).
     ``tables`` optionally carries the engine's record table
-    (`trace_bvh4.prepare_tables4` for cuda4/plain4, `trace_bvh2.prepare_tables`
-    for cuda2/plain2; the two are told apart by their 64 or 32 slots per row)
+    (`trace_bvh4.prepare_tables4` for cuda4/plain4, or its
+    `trace_bvh4.compress_tables4` form; `trace_bvh2.prepare_tables` for
+    cuda2/plain2; they are told apart by their 64, 52 or 32 slots per row)
     so a static scene is packed once, not per frame.  ``t_init`` (optional
     (R,) f32) is an exact pruning bound from a previous traversal;
     ``anyhit_thresh`` (optional (R,)

@@ -25,8 +25,16 @@ per-call state, so a call can be captured in a CUDA graph.  The scratch is
 zero-filled when it is allocated — per device and stream, since two streams
 must not share it — and again when a call needs more tiles than it has or
 after 2^30 - 1 calls, before the 30-bit epoch of the status words comes round
-(`ScanScratch`; calls replayed from a graph are not counted, and at one size
-they write every status word they read).  int32 and int64 are
+(`ScanScratch`).  Calls replayed from a CUDA graph do not advance that count
+of calls: the host does not see a replay.  They need no refill, because at
+one size a replay writes every status word it reads, so a stale word is
+never more than one epoch old.  Scratch under a CUDA graph: a graph keeps
+the device pointers it was captured with, so the scratch a capture saw must
+outlive the graph.  `ScanScratch` never frees such scratch: when a call
+needs more tiles than the words hold, the words that a capture may have
+used stay alive (for the life of the `ScanScratch`) and the new, larger
+words serve the eager calls from then on.  Replays keep to the old words
+and their own epochs; eager calls to the new ones.  int32 and int64 are
 summed in their own type and are exact (there is no 2^24 limit as in the
 float32-carried TPU kernel); they are bit-identical to `exclusive_scan_plain`.
 float32 is summed in tree order, and the look-back adds predecessors in an
@@ -67,19 +75,27 @@ class ScanScratch:
     status word per tile; for int64 also an aggregate and a prefix slot).
 
     `reserve` zero-fills the words when they are first allocated, when a
-    call needs more tiles than they hold, and after `CALLS_PER_FILL` calls."""
+    call needs more tiles than they hold, and after `CALLS_PER_FILL` calls.
+    Words that a CUDA graph capture may have used are never freed: growth
+    moves them to ``kept``, where they live as long as this object."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.capacity = 0       # tiles the words hold
         self.words = None       # int64 (1 + 3 * capacity,): control, then status
         self.calls = 0          # calls since the words were zero-filled
+        self.captured = False   # a graph capture has used the current words
+        self.kept = []          # earlier words a capture used: never freed
 
-    def reserve(self, tiles: int):
-        """(words, capacity) for a call of ``tiles`` tiles."""
+    def reserve(self, tiles: int, capturing: bool = False):
+        """(words, capacity) for a call of ``tiles`` tiles; ``capturing``
+        says that the call is being captured into a CUDA graph."""
         if tiles < 1:
             raise ValueError(f"a scan call has at least one tile, got {tiles}")
         if tiles > self.capacity:
+            if self.captured:
+                self.kept.append(self.words)
+                self.captured = False
             self.capacity = max(tiles, 2 * self.capacity)
             self.words = torch.zeros((1 + 3 * self.capacity,), dtype=torch.int64,
                                      device=self.device)
@@ -88,6 +104,7 @@ class ScanScratch:
             self.words.zero_()
             self.calls = 0
         self.calls += 1
+        self.captured = self.captured or capturing
         return self.words, self.capacity
 
 
@@ -133,7 +150,8 @@ def _scan_on_card(x: torch.Tensor, fn, stream: int) -> torch.Tensor:
     scratch = _SCRATCH.get(key)
     if scratch is None:
         scratch = _SCRATCH[key] = ScanScratch(x.device)
-    words, capacity = scratch.reserve(tiles_of(n))
+    words, capacity = scratch.reserve(
+        tiles_of(n), capturing=torch.cuda.is_current_stream_capturing())
     out = torch.empty_like(x)
     err = fn(x.data_ptr(), out.data_ptr(), words.data_ptr() + 8, words.data_ptr(),
              n, capacity, _DTYPE_CODES[x.dtype], stream)

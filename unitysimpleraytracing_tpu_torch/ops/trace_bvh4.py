@@ -43,6 +43,20 @@ first kernel's time beside it, from ``benchmarks/kernel_ab.py``).
 arithmetic order; the CPU tests use it and ``chip_smoke.py`` holds the kernel
 against it bit for bit, records popped per ray included.
 
+Compressed records (`compress_tables4`).  A ``(cap4, 52)`` table stores each
+entry's box as three float32 slots, each one axis's (min, max) as a bf16
+pair, rounded outward (min down, max up), so the stored box contains the
+float32 box: 208 bytes a record instead of 256.  `traverse_bvh4` takes it
+too: on the card it launches the same kernel's second entry point (the
+counterpart of ``_make_kernel4(compress=True)``), which unpacks each pair
+exactly (``w & 0xFFFF0000`` and ``w << 16`` read as float32) and then walks
+as above; `traverse_bvh4_plain` unpacks the same way.  A widened box only
+admits extra slab passes, which the strict-< triangle fold rejects, with one
+semantic edge: a triangle entirely BEHIND the ray origin whose true box has
+tmax within the bf16 rounding of 0 can now reach the (t > 0-free) triangle
+test, where the reference would have culled it at the box stage
+(Raytracing.compute:86).
+
 Reference mapping: same acceptance contract as Raytracing.compute:37-103
 (slab ``tmax>tmin && tmax>0``, Möller–Trumbore det/u/v rejects, no t>0 test).
 """
@@ -59,6 +73,7 @@ from unitysimpleraytracing_tpu_torch.ops import lbvh
 from unitysimpleraytracing_tpu_torch.utils import kernel_build
 
 _SLOTS4 = 64
+_SLOTS4C = 52  # compressed: 12 bf16-pair box slots, 4 metas, 36 vertex slots
 _IDX_BITS = 21
 _IDX_MASK = (1 << _IDX_BITS) - 1
 KERNEL_NAME = "trace_bvh4"
@@ -264,10 +279,52 @@ def pack_tables4(
     return _apply_plan4(scene, bvh, *plan)
 
 
+@torch.no_grad()
+def compress_tables4(table: torch.Tensor) -> torch.Tensor:
+    """(cap4, 64) record table → (cap4, 52) COMPRESSED table, bit-identical
+    to the JAX package's ``compress_tables4``: each entry's six box floats
+    become three float32 slots, each packing (min, max) of one axis as a
+    bf16 pair (min in the high 16 bits, max in the low).
+
+    Rounding is DIRECTED, so the stored box always contains the float32 box
+    (min rounded down, max rounded up); the module doc gives the one
+    semantic edge.  Float32 denormals are rounded outward too, where XLA
+    flushes them to zero in its sign test (a negative denormal min is
+    truncated toward zero there); no packed box holds one, because triangle
+    boxes are inflated by 1e-3.  Layout: slots 0-11 packed boxes (entry-major, axes x, y,
+    z), 12-15 metas, 16-51 vertices.  Worked on int32 views (the bit
+    patterns of the uint32 arithmetic), because torch has few uint32
+    operations."""
+    if table.ndim != 2 or table.shape[1] != _SLOTS4 or table.dtype != torch.float32:
+        raise ValueError(f"not a float32 (cap4, {_SLOTS4}) record table: "
+                         f"{table.dtype} {tuple(table.shape)}")
+    bits = table.contiguous().view(torch.int32)
+    hi_mask = -65536  # 0xFFFF0000
+
+    def rounded(b, v, bump_where):
+        """The bf16 pattern (in the high 16 bits) next to v toward the side
+        ``bump_where`` selects: truncation, plus one bf16 step where it
+        moved v the wrong way."""
+        bump = bump_where(v) & ((b & 0xFFFF) != 0)
+        return (b & hi_mask) + torch.where(bump, 1 << 16, 0).to(torch.int32)
+
+    boxes = []
+    for e in range(4):
+        lo_b, hi_b = bits[:, 6 * e:6 * e + 3], bits[:, 6 * e + 3:6 * e + 6]
+        lo_v, hi_v = table[:, 6 * e:6 * e + 3], table[:, 6 * e + 3:6 * e + 6]
+        lo16 = rounded(lo_b, lo_v, lambda v: v < 0)       # largest bf16 <= min
+        hi16 = (rounded(hi_b, hi_v, lambda v: v > 0) >> 16) & 0xFFFF  # smallest >= max
+        boxes.append(lo16 | hi16)
+    return torch.cat(boxes + [bits[:, 24:]], dim=1).view(torch.float32)
+
+
 def table_geometry(tables: torch.Tensor) -> int:
-    """Record count of a packed table (the port has one layout)."""
-    if tables.ndim != 2 or tables.shape[1] != _SLOTS4:
-        raise ValueError(f"not a (cap4, {_SLOTS4}) record table: {tuple(tables.shape)}")
+    """Record count of a packed table: ``(cap4, 64)`` records, or
+    ``(cap4, 52)`` compressed ones (`compress_tables4`)."""
+    if tables.ndim != 2 or tables.shape[1] not in (_SLOTS4, _SLOTS4C):
+        raise ValueError(
+            f"not a (cap4, {_SLOTS4}) or compressed (cap4, {_SLOTS4C}) record table: "
+            f"{tuple(tables.shape)}")
     return tables.shape[0]
 
 
@@ -323,10 +380,11 @@ def _check_inputs(table, origins, dirs, t_init, anyhit_thresh):
     check_ray_batch(table, origins, dirs, t_init, anyhit_thresh)
 
 
-def _load_kernel():
-    """The kernel's C entry point, built by nvcc on first use."""
+def _load_kernel(compressed: bool = False):
+    """The kernel's C entry point for 64-slot records, or for compressed
+    52-slot ones, built by nvcc on first use."""
     lib = kernel_build.load_kernel_library(KERNEL_NAME)
-    fn = lib.trace_bvh4_launch
+    fn = lib.trace_bvh4c_launch if compressed else lib.trace_bvh4_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -377,7 +435,8 @@ def traverse_bvh4(
 ):
     """BVH4 nearest-hit traversal over (R, 3) rays (see module doc).
 
-    ``table`` is a `prepare_tables4` result.  ``t_init`` (R,) seeds the
+    ``table`` is a `prepare_tables4` result, or its `compress_tables4`
+    form (52 slots a record).  ``t_init`` (R,) seeds the
     running best; ``anyhit_thresh`` (R,), where positive, retires a ray at
     its first accepted hit below the threshold with t collapsed to 0 (the
     occlusion boolean ``hit & (t < thresh)`` is what is specified).
@@ -387,25 +446,45 @@ def traverse_bvh4(
     On CUDA tensors this launches the hand-written kernel on the current
     stream without synchronising, or raises; it never gives way to the plain
     version.  On CPU tensors it runs `traverse_bvh4_plain`.
-    ``traverse_bvh4.launches`` counts kernel launches.
+    ``traverse_bvh4.launches`` counts launches of the 64-slot kernel,
+    ``traverse_bvh4.compressed_launches`` those of the 52-slot one.
     """
     _check_inputs(table, origins, dirs, t_init, anyhit_thresh)
     if origins.device.type == "cpu":
         return traverse_bvh4_plain(
             table, origins, dirs, t_init, anyhit_thresh, count_steps
         )
+    compressed = table.shape[1] == _SLOTS4C
     hits, steps = launch_traversal(
-        _load_kernel(), KERNEL_NAME, table, origins, dirs, t_init, anyhit_thresh, count_steps
+        _load_kernel(compressed), KERNEL_NAME, table, origins, dirs, t_init,
+        anyhit_thresh, count_steps,
     )
-    traverse_bvh4.launches += 1
+    if compressed:
+        traverse_bvh4.compressed_launches += 1
+    else:
+        traverse_bvh4.launches += 1
     return (hits, steps) if count_steps else hits
 
 
 traverse_bvh4.launches = 0
+traverse_bvh4.compressed_launches = 0
 
 # The plain version checks its stacks and compacts its working set every
 # this many steps (each check is one device→host read).
 _PLAIN_CHECK_EVERY = 8
+
+
+def _unpack_record(rec: torch.Tensor):
+    """(boxes (A, 4, 6), metas (A, 4) as floats, first vertex slot) of
+    popped records, 64-slot or compressed 52-slot.  A compressed slot's
+    bf16 pair unpacks exactly: ``w & 0xFFFF0000`` and ``w << 16`` read as
+    float32, as the kernel does."""
+    if rec.shape[1] == _SLOTS4:
+        return rec[:, 0:24].reshape(-1, 4, 6), rec[:, 24:28], 28
+    w = rec[:, 0:12].view(torch.int32)
+    lo = (w & -65536).view(torch.float32).reshape(-1, 4, 3)
+    hi = (w << 16).view(torch.float32).reshape(-1, 4, 3)
+    return torch.cat([lo, hi], dim=2), rec[:, 12:16], 16
 
 
 def _plain_step(table, o, d, inv, thr, t, tri, u, v, stack, sp, steps, work):
@@ -416,11 +495,11 @@ def _plain_step(table, o, d, inv, thr, t, tri, u, v, stack, sp, steps, work):
     spm1 = torch.clamp(sp - 1, min=0)
     k = torch.gather(stack, 1, spm1[:, None])[:, 0].to(torch.int64)
     k = torch.where(active, k, 0)
-    rec = table[k]  # (A, 64)
+    rec = table[k]  # (A, 64) or compressed (A, 52)
     steps = steps + active
 
     # Four slab tests against the running t as it was at the pop.
-    box = rec[:, 0:24].reshape(-1, 4, 6)
+    box, meta, vbase = _unpack_record(rec)
     t1 = (box[:, :, 0:3] - o[:, None, :]) * inv[:, None, :]
     t2 = (box[:, :, 3:6] - o[:, None, :]) * inv[:, None, :]
     lo = torch.fmin(t1, t2)
@@ -429,7 +508,7 @@ def _plain_step(table, o, d, inv, thr, t, tri, u, v, stack, sp, steps, work):
     tmax = torch.fmin(hi[..., 0], torch.fmin(hi[..., 1], hi[..., 2]))
     hit = (tmax > tmin) & (tmax > 0) & (tmin < t[:, None]) & active[:, None]
 
-    m = rec[:, 24:28].to(torch.int32)  # exact: metas are integers < 2^24
+    m = meta.to(torch.int32)  # exact: metas are integers < 2^24
     idx = m & _IDX_MASK
     leaf = ((m >> _IDX_BITS) & 1) == 1
     axis = m >> (_IDX_BITS + 1)
@@ -437,7 +516,7 @@ def _plain_step(table, o, d, inv, thr, t, tri, u, v, stack, sp, steps, work):
     ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     for e in range(4):
-        vt = rec[:, 28 + 9 * e: 37 + 9 * e]
+        vt = rec[:, vbase + 9 * e: vbase + 9 + 9 * e]
         ax, ay, az = vt[:, 0], vt[:, 1], vt[:, 2]
         e1x, e1y, e1z = vt[:, 3], vt[:, 4], vt[:, 5]
         e2x, e2y, e2z = vt[:, 6], vt[:, 7], vt[:, 8]

@@ -58,12 +58,17 @@ OPS_PER_LEAF_TEST = 53
 RECORD_BYTES2 = 128
 OPS_PER_POP2 = 2 * 25
 OPS_PER_LEAF_TEST2 = OPS_PER_LEAF_TEST + 6
+# Compressed BVH4 records (trace_bvh4.compress_tables4): 208 bytes; the same
+# float32 operations as OPS_PER_POP (the bf16 unpack is integer work).
+RECORD_BYTES_C = 52 * 4
 # Bytes the kernels load, as their code reads them.  csrc/trace_bvh4.cu: the
 # four boxes and the metas of a popped record as seven 16-byte loads, and the
 # 36-byte triangle of a leaf entry whose slab test passed as nine 4-byte
 # loads.  csrc/trace_bvh2.cu: four 16-byte loads per popped record, nine
-# 4-byte loads per leaf test.
+# 4-byte loads per leaf test; the compressed entry point of
+# csrc/trace_bvh4.cu: four 16-byte loads per popped record.
 LOADED_BYTES_PER_POP = 7 * 16
+LOADED_BYTES_PER_POP_C = 4 * 16
 LOADED_BYTES_PER_LEAF_TEST = 9 * 4
 LOADED_BYTES_PER_POP2 = 4 * 16
 LOADED_BYTES_PER_LEAF_TEST2 = 9 * 4
