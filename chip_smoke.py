@@ -59,8 +59,9 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from unitysimpleraytracing_tpu_torch.benchmarks.kernel_ab import frame_rays, random_rays
 from unitysimpleraytracing_tpu_torch.utils.profiling import (
-    LOADED_BYTES_PER_LEAF_TEST, LOADED_BYTES_PER_LEAF_TEST2, LOADED_BYTES_PER_POP,
+    LOADED_BYTES_PER_LEAF_RECORD2, LOADED_BYTES_PER_LEAF_TEST, LOADED_BYTES_PER_POP,
     LOADED_BYTES_PER_POP2, LOADED_BYTES_PER_POP_C, OPS_PER_LEAF_TEST2, OPS_PER_POP2,
     PEAK_BYTES_PER_S, PEAK_F32_NOFMA_OPS_PER_S, PEAK_F32_OPS_PER_S, RECORD_BYTES2,
     RECORD_BYTES_C, Timer, loaded_bytes, roofline_ms, warp_lane_efficiency,
@@ -116,14 +117,6 @@ def profile_frames(fn, frame_ms: float, frames: int = 3) -> dict:
     }
 
 
-def random_rays(n: int, seed: int, bound: float):
-    rng = np.random.default_rng(seed)
-    o = rng.uniform(-bound, bound, size=(n, 3)).astype(np.float32)
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    return torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
-
-
 def engine_of(module):
     """(kernel wrapper, plain version) of ops/trace_bvh4 or ops/trace_bvh2."""
     if module.KERNEL_NAME == "trace_bvh4":
@@ -176,7 +169,7 @@ def traversal_on_tree(timer, parity, module, table, rays, n_rays):
     kernel, _ = engine_of(module)
     two = module.KERNEL_NAME == "trace_bvh2"
     compressed = table.shape[1] == 52  # K1c: trace_bvh4.compress_tables4 records
-    per_pop, per_leaf = ((LOADED_BYTES_PER_POP2, LOADED_BYTES_PER_LEAF_TEST2) if two
+    per_pop, per_leaf = ((LOADED_BYTES_PER_POP2, LOADED_BYTES_PER_LEAF_RECORD2) if two
                          else (LOADED_BYTES_PER_POP_C if compressed else LOADED_BYTES_PER_POP,
                                LOADED_BYTES_PER_LEAF_TEST))
     roof_kw = (dict(record_bytes=RECORD_BYTES2, ops_per_pop=OPS_PER_POP2,
@@ -192,7 +185,8 @@ def traversal_on_tree(timer, parity, module, table, rays, n_rays):
         pops, leaf = int(steps.sum()), work["leaf_tests"]
         ms = timer.median_ms(lambda: kernel(table, o, d, anyhit_thresh=thr),
                              iters=7, cold=True, queued=True)
-        loaded = loaded_bytes(pops, leaf, per_pop, per_leaf)
+        # K2 reads both triangles of a record that tests a leaf child at once.
+        loaded = loaded_bytes(pops, work["leaf_records"] if two else leaf, per_pop, per_leaf)
         out[name] = {
             "compare": st, "ms_cold_l2": ms, "plain_ms": st.pop("plain_ms"),
             "pops": pops, "records_per_ray": pops / n_rays, "max_pops": int(steps.max()),
@@ -1534,22 +1528,11 @@ def main() -> int:
     # above and over the default tree that users trace (``build_bvh(scene)``):
     # each against its plain version, timed alone, with the work this run's
     # data needs.
-    def main_path_rays(tree):
-        """Tile-major primary rays and the shadow rays of this tree's hits."""
-        o, d = generate_rays(cam)
-        so, sd, bound = render.shadow_rays(scene, tree, rt.render_hits(scene, tree, cam), cam)
-        bo, bd, thr, _ = dispatch.occlusion_rays(
-            scene, dispatch._tile_major(so, H, W, 32), dispatch._tile_major(sd, H, W, 32),
-            origin_bound=bound)
-        return {"primary": (dispatch._tile_major(o, H, W, 32).contiguous(),
-                            dispatch._tile_major(d, H, W, 32).contiguous(), None),
-                "shadow": (bo.contiguous(), bd.contiguous(), thr)}
-
     t0 = time.perf_counter()
     on_tree, rays_of, tables_of = {}, {}, {}
     default_tree = rt.build_bvh(scene)
     for label, tree in (("default", default_tree), ("karras", bvh)):
-        rays_of[label] = main_path_rays(tree)
+        rays_of[label] = frame_rays(rt, scene, tree, cam, W, H)
         tables_of[label] = (trace_bvh4.prepare_tables4(scene, tree),
                             trace_bvh2.prepare_tables(scene, tree))
         on_tree[label] = {

@@ -202,7 +202,7 @@ def _small_walk(module_name):
 
 @pytest.mark.parametrize("module_name, per_pop, per_leaf", [
     ("trace_bvh4", 7 * 16, 9 * 4),    # seven 16-byte loads; a leaf as nine 4-byte loads
-    ("trace_bvh2", 4 * 16, 9 * 4),    # four 16-byte loads; a leaf as nine 4-byte loads
+    ("trace_bvh2", 4 * 16, 4 * 16),   # four 16-byte loads; both leaves as four more
 ])
 def test_loaded_bytes_counted_by_hand_from_the_plain_walk(module_name, per_pop, per_leaf):
     _, _, _, steps, work = _small_walk(module_name)
@@ -211,8 +211,11 @@ def test_loaded_bytes_counted_by_hand_from_the_plain_walk(module_name, per_pop, 
     if module_name == "trace_bvh4":
         got = pprof.loaded_bytes(pops, leaf)
     else:
+        # K2 reads a record's two triangles once, whichever leaf child it tests.
+        leaf = work["leaf_records"]
+        assert 0 < leaf <= min(pops, work["leaf_tests"]) and isinstance(leaf, int)
         got = pprof.loaded_bytes(pops, leaf, pprof.LOADED_BYTES_PER_POP2,
-                                 pprof.LOADED_BYTES_PER_LEAF_TEST2)
+                                 pprof.LOADED_BYTES_PER_LEAF_RECORD2)
     assert got == pops * per_pop + leaf * per_leaf
 
 

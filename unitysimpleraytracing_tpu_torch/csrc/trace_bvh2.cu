@@ -20,19 +20,34 @@
 //   [14, 23)  left leaf triangle a, b, c (zeros for an internal child)
 //   [23, 32)  right leaf triangle a, b, c
 //
-// What bounds it: the walk is a chain of dependent 128-byte record fetches (a
-// pop cannot start before the previous record's slab tests are done), so
-// it is latency bound on the L2/HBM path, not bandwidth or FLOP bound.  The
-// design reads boxes and metas with four 16-byte read-only loads per pop,
-// fetches the 36 bytes of a leaf triangle only when that child's slab test
-// passed, and relies on rays arriving in 32x32 tile-major order so the lanes
-// of a warp touch the same records and the table stays in L1/L2.
+// What bounds it on an NVIDIA H100 80GB HBM3 at 700 W
+// (benchmarks/kernel_ab.py, 2,027,520 primary rays over the default tree of
+// 260,642 triangles, 7.07 records a ray): not bytes (a warm L2 is within 1 %
+// of a cold one) and not one fetch's latency, but the walk's chain of
+// dependent steps: stack -> record -> slab tests -> next record, 1.7 times
+// as many steps as the BVH4 kernel's, each a shorter one, with the lanes of
+// a 32-ray warp 71 % busy: 0.19 ms against a 0.030 ms bound (bytes;
+// operations at the no-FMA rate 0.023).  The design keeps that chain short:
+// the near child is popped straight back on most internal steps, so it stays
+// in a register as the record popped next instead of a local store and a
+// dependent local load (-4 to -6 % against pushing it); boxes and metas are
+// four 16-byte read-only loads a pop; a record whose slab test passed a leaf
+// child reads its two triangles as four more 16-byte loads (slots 16-31 are
+// aligned), one burst in place of nine 4-byte loads a leaf (a further 0 to
+// -3 %, and most of the -11 % at 1,048,352 triangles, whose table does not
+// fit in L2); rays arrive in 32x32 tile-major order, 32 of one pixel row to
+// a warp; 128-thread blocks (56 registers, no spill: 36 resident warps a
+// SM).  More resident warps bought with spills (40 or 32 registers), the
+// next record's loads issued before this record's leaf tests (70
+// registers), and the metas decoded by an exact add of 2^23 in place of the
+// float-to-int conversion each tied or lost.
 //
 // Arithmetic contract: compiled with -fmad=false and without fast-math, every
 // product and sum below is a separate IEEE float32 operation in the order
 // written.  The plain PyTorch version (traverse_bvh2_plain) does the same
-// operations in the same order, so the two agree bit for bit.  fminf/fmaxf
-// return the non-NaN operand: the D3D min/max rule of the original shader.
+// operations in the same order, so the two agree bit for bit, records popped
+// per ray included.  fminf/fmaxf return the non-NaN operand: the D3D min/max
+// rule of the original shader.
 
 #include <cuda_runtime.h>
 
@@ -54,6 +69,44 @@ __device__ __forceinline__ bool slab_test(
     const float tmin = fmaxf(fminf(t1x, t2x), fmaxf(fminf(t1y, t2y), fminf(t1z, t2z)));
     const float tmax = fminf(fmaxf(t1x, t2x), fminf(fmaxf(t1y, t2y), fmaxf(t1z, t2z)));
     return (tmax > tmin) && (tmax > 0.0f) && (tmin < t_cur);
+}
+
+// Moller-Trumbore on one leaf child's vertices a, b, c; keeps the hit when it
+// is accepted and nearer than t.  No t > 0 test; accept on strict <.
+__device__ __forceinline__ void leaf_test(
+    float ax, float ay, float az, float bx, float by, float bz,
+    float cx, float cy, float cz,
+    float ox, float oy, float oz, float dx, float dy, float dz, int id,
+    float& t, int& tri, float& u, float& v)
+{
+    const float e1x = bx - ax;
+    const float e1y = by - ay;
+    const float e1z = bz - az;
+    const float e2x = cx - ax;
+    const float e2y = cy - ay;
+    const float e2z = cz - az;
+    const float px = dy * e2z - dz * e2y;
+    const float py = dz * e2x - dx * e2z;
+    const float pz = dx * e2y - dy * e2x;
+    const float det = e1x * px + e1y * py + e1z * pz;
+    const float inv_det = 1.0f / det;
+    const float tvx = ox - ax, tvy = oy - ay, tvz = oz - az;
+    const float uu = (tvx * px + tvy * py + tvz * pz) * inv_det;
+    const float qx = tvy * e1z - tvz * e1y;
+    const float qy = tvz * e1x - tvx * e1z;
+    const float qz = tvx * e1y - tvy * e1x;
+    const float vv = (dx * qx + dy * qy + dz * qz) * inv_det;
+    const float tn = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+    const bool reject =
+        ((det < 1e-8f) && (det > -1e-8f)) ||
+        ((uu < 0.0f) || (uu > 1.0f)) ||
+        ((vv < 0.0f) || (uu + vv > 1.0f));
+    if (!reject && (tn < t)) {
+        t = tn;
+        tri = id;
+        u = uu;
+        v = vv;
+    }
 }
 
 __global__ void __launch_bounds__(BLOCK_THREADS)
@@ -95,16 +148,15 @@ trace_bvh2_kernel(
     int steps = 0;
 
     int stack[STACK_DEPTH];
-    int sp = 1;
-    stack[0] = 0;
+    int k = 0;                           // the record popped next
+    int sp = 0;                          // entries on the stack below k
 
-    while (sp > 0) {
-        const int k = stack[--sp];
+    while (true) {
         ++steps;
         const float4* rec = table + (size_t)k * 8;
 
-        // Slots 0-15: both boxes, both metas (and the first two floats of
-        // the left triangle, re-read below only if that leaf is tested).
+        // Slots 0-15: both boxes, both metas and the left triangle's first
+        // two floats.
         float b[16];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -128,42 +180,23 @@ trace_bvh2_kernel(
             slab_test(b + 6, ox, oy, oz, ix, iy, iz, t),
         };
 
-        // Leaf children, left then right: Moller-Trumbore on the embedded
-        // vertices, gated by the child's own slab mask.  No t > 0 test;
-        // accept on strict <.
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-            if (hit[c] && leaf[c]) {
-                const float* vp = reinterpret_cast<const float*>(rec) + 14 + 9 * c;
-                const float ax = __ldg(vp + 0), ay = __ldg(vp + 1), az = __ldg(vp + 2);
-                const float e1x = __ldg(vp + 3) - ax;
-                const float e1y = __ldg(vp + 4) - ay;
-                const float e1z = __ldg(vp + 5) - az;
-                const float e2x = __ldg(vp + 6) - ax;
-                const float e2y = __ldg(vp + 7) - ay;
-                const float e2z = __ldg(vp + 8) - az;
-                const float px = dy * e2z - dz * e2y;
-                const float py = dz * e2x - dx * e2z;
-                const float pz = dx * e2y - dy * e2x;
-                const float det = e1x * px + e1y * py + e1z * pz;
-                const float inv_det = 1.0f / det;
-                const float tvx = ox - ax, tvy = oy - ay, tvz = oz - az;
-                const float uu = (tvx * px + tvy * py + tvz * pz) * inv_det;
-                const float qx = tvy * e1z - tvz * e1y;
-                const float qy = tvz * e1x - tvx * e1z;
-                const float qz = tvx * e1y - tvy * e1x;
-                const float vv = (dx * qx + dy * qy + dz * qz) * inv_det;
-                const float tn = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-                const bool reject =
-                    ((det < 1e-8f) && (det > -1e-8f)) ||
-                    ((uu < 0.0f) || (uu > 1.0f)) ||
-                    ((vv < 0.0f) || (uu + vv > 1.0f));
-                if (!reject && (tn < t)) {
-                    t = tn;
-                    tri = idx[c];
-                    u = uu;
-                    v = vv;
-                }
+        // Leaf children, left then right, each gated by its own slab mask.
+        // Slots 16-31 are four aligned float4s: the left triangle is b[14],
+        // b[15], rec[4] and rec[5].xyz, the right one rec[5].w, rec[6], rec[7].
+        const bool test_l = hit[0] && leaf[0];
+        const bool test_r = hit[1] && leaf[1];
+        if (test_l || test_r) {
+            const float4 q4 = __ldg(rec + 4);
+            const float4 q5 = __ldg(rec + 5);
+            const float4 q6 = __ldg(rec + 6);
+            const float4 q7 = __ldg(rec + 7);
+            if (test_l) {
+                leaf_test(b[14], b[15], q4.x, q4.y, q4.z, q4.w, q5.x, q5.y, q5.z,
+                          ox, oy, oz, dx, dy, dz, idx[0], t, tri, u, v);
+            }
+            if (test_r) {
+                leaf_test(q5.w, q6.x, q6.y, q6.z, q6.w, q7.x, q7.y, q7.z, q7.w,
+                          ox, oy, oz, dx, dy, dz, idx[1], t, tri, u, v);
             }
         }
 
@@ -175,20 +208,27 @@ trace_bvh2_kernel(
         }
 
         // Push internal children far then near; a leaf child was tested in
-        // place and is never pushed.
+        // place and is never pushed.  The near one, pushed last, is the next
+        // pop, so it goes to k and not through the stack.
         const bool push_l = hit[0] && !leaf[0];
         const bool push_r = hit[1] && !leaf[1];
         const bool l_near = axis == 0 ? near_x : (axis == 1 ? near_y : near_z);
         // A tree deeper than the stack allows is an error, never a silent
-        // overwrite (net growth is at most 1 per record).
+        // overwrite (net growth is at most 1 per record).  With k held in a
+        // register the stack holds one entry less than a push-all-then-pop
+        // walk's; the test is that walk's.
         if (sp + (int)push_l + (int)push_r > STACK_DEPTH) __trap();
         if (push_l && push_r) {
             stack[sp++] = l_near ? idx[1] : idx[0];
-            stack[sp++] = l_near ? idx[0] : idx[1];
+            k = l_near ? idx[0] : idx[1];
         } else if (push_l) {
-            stack[sp++] = idx[0];
+            k = idx[0];
         } else if (push_r) {
-            stack[sp++] = idx[1];
+            k = idx[1];
+        } else if (sp > 0) {
+            k = stack[--sp];
+        } else {
+            break;
         }
     }
 

@@ -45,15 +45,19 @@ hand-written CUDA kernel that replaces the TPU kernel
 ``ops/trace_pallas.py::_make_kernel``: one thread per ray with a private
 64-entry stack, each ray ordering the two children by its own direction sign
 (the TPU kernel shared one stack and one sign vote per packet of rays), the
-any-hit mode leaving the loop at the first accepted hit.  Like the BVH4
-kernel it is a chain of dependent record fetches — latency on the L2 path,
-not bytes or operations, sets its time; a binary record advances one tree
-level per fetch where a BVH4 record advances two, so it pops about twice as
-many records, each half the size.  Its roofline bound is bytes (rays in, hits
-out, each distinct record once): on an H100 80GB HBM3 at 700 W
-``chip_smoke.py`` measured 0.30 ms against a 0.030 ms bound for 2,027,520
-camera rays over 261,120 records (12.5 records per ray), and 0.34 ms for the
-BVH4 kernel on the same rays in the same call.
+any-hit mode leaving the loop at the first accepted hit.  What sets its pace
+is the walk's chain of dependent steps (stack → record → slab tests → next
+record), not bytes: a warm L2 runs it within 1 % of a cold one.  So the near
+child, popped straight back on most steps, stays in a register as the next
+record instead of going through the stack, and a record that tests a leaf
+child reads both triangles as four 16-byte loads.  A binary record advances
+one tree level per fetch where a BVH4 record advances two, so it pops 1.7 to
+2 times as many records, each half the size, and is still the faster of the
+two.  On an H100 80GB HBM3 at 700 W ``benchmarks/kernel_ab.py`` measured
+0.19 ms for 2,027,520 camera rays over the default tree's 261,120 records
+(7.07 records per ray) against a 0.030 ms bound (bytes: rays in, hits out,
+each distinct record once), and the BVH4 kernel slower on every scene it
+times (``--cases k2_vs_k1``).
 `traverse_bvh2_plain` is the same traversal in plain PyTorch with the same
 arithmetic order; the CPU tests use it and ``chip_smoke.py`` holds the kernel
 against it bit for bit.
@@ -337,6 +341,8 @@ def _plain_step(table, o, d, inv, thr, t, tri, u, v, stack, sp, steps, work):
     if work is not None:
         work["visited"][k[active]] = True
         work["leaf_tests"] += (hit_l & lleaf).sum() + (hit_r & rleaf).sum()
+        work["leaf_records"] = work.get("leaf_records", 0) + (
+            (hit_l & lleaf) | (hit_r & rleaf)).sum()
 
     # Any-hit: retire at the first accepted hit below a positive threshold.
     collapsed = active & (thr > 0) & (t < thr)
@@ -381,9 +387,11 @@ def traverse_bvh2_plain(
     `trace_bvh4.plain_traverse`).
 
     ``work`` (this version only): a dict that receives what the walk needed —
-    ``records_visited`` (distinct records popped by any ray) and
-    ``leaf_tests`` (triangle tests run) — the data-dependent terms of the
-    kernel's roofline bound.  The kernel walks the same records."""
+    ``records_visited`` (distinct records popped by any ray), ``leaf_tests``
+    (triangle tests run) and ``leaf_records`` (popped records that tested a
+    leaf child, each of which the kernel reads whole) — the data-dependent
+    terms of the kernel's roofline bound and loaded bytes.  The kernel walks
+    the same records."""
     _check_inputs(table, origins, dirs, t_init, anyhit_thresh)
     return trace_bvh4.plain_traverse(
         _plain_step, 2, table, origins, dirs, t_init, anyhit_thresh, count_steps, work

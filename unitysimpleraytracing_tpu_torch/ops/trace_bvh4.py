@@ -637,7 +637,9 @@ def plain_traverse(step, max_push, table, origins, dirs, t_init, anyhit_thresh,
         it += 1
     if work is not None:
         work["records_visited"] = int(work.pop("visited").sum())
-        work["leaf_tests"] = int(work["leaf_tests"])
+        for name, count in work.items():   # leaf_tests, and the steps' own counters
+            if isinstance(count, torch.Tensor):
+                work[name] = int(count)
 
     hits = HitRecord(t=out_t, tri=out_tri, u=out_u, v=out_v)
     return (hits, out_steps) if count_steps else hits

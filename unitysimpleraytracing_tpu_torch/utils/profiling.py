@@ -64,14 +64,15 @@ RECORD_BYTES_C = 52 * 4
 # Bytes the kernels load, as their code reads them.  csrc/trace_bvh4.cu: the
 # four boxes and the metas of a popped record as seven 16-byte loads, and the
 # 36-byte triangle of a leaf entry whose slab test passed as nine 4-byte
-# loads.  csrc/trace_bvh2.cu: four 16-byte loads per popped record, nine
-# 4-byte loads per leaf test; the compressed entry point of
-# csrc/trace_bvh4.cu: four 16-byte loads per popped record.
+# loads.  csrc/trace_bvh2.cu: four 16-byte loads per popped record, and four
+# more (slots 16-31, both triangles) per popped record that tests a leaf
+# child (the plain walk's ``work["leaf_records"]``); the compressed entry
+# point of csrc/trace_bvh4.cu: four 16-byte loads per popped record.
 LOADED_BYTES_PER_POP = 7 * 16
 LOADED_BYTES_PER_POP_C = 4 * 16
 LOADED_BYTES_PER_LEAF_TEST = 9 * 4
 LOADED_BYTES_PER_POP2 = 4 * 16
-LOADED_BYTES_PER_LEAF_TEST2 = 9 * 4
+LOADED_BYTES_PER_LEAF_RECORD2 = 4 * 16
 
 
 def _first_tensor(x):
@@ -337,7 +338,9 @@ def loaded_bytes(pops: int, leaf_tests: int, per_pop: int = LOADED_BYTES_PER_POP
                  per_leaf_test: int = LOADED_BYTES_PER_LEAF_TEST) -> int:
     """Record bytes a traversal kernel asks of the caches in one run: what it
     loads per popped record and per leaf test, times this run's counts (the
-    ``steps`` total and the plain version's ``work["leaf_tests"]``)."""
+    ``steps`` total and the plain version's ``work["leaf_tests"]``; for the
+    binary-record kernel, per popped record that tests a leaf child,
+    ``work["leaf_records"]``, and `LOADED_BYTES_PER_LEAF_RECORD2`)."""
     return pops * per_pop + leaf_tests * per_leaf_test
 
 
