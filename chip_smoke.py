@@ -9,10 +9,10 @@ the repo calls real (260,642 triangles at 1920x1056 with shadow rays;
 
 - the static-scene frame: procedural mesh → ``build_scene`` → ``build_bvh`` →
   BVH4 record table → CUDA traversal kernel → shade → compose → PNG;
-- the build's radix-sort path: ``build_bvh(sort_impl="cuda")`` (digit
-  histogram, exclusive scan and stable rank kernels, four passes) and
-  ``build_bvh(validate=True)`` (every validator, every digit pass of both
-  decomposed sort engines);
+- the build's radix-sort path: ``build_bvh(sort_impl="cuda")`` (one count of
+  all four digits, the exclusive scan of the counts, four look-back passes
+  that rank and move keys and values) and ``build_bvh(validate=True)``
+  (every validator, every digit pass of both decomposed sort engines);
 - the dynamic-scene paths on the same 260,642-triangle scene: ``render_frames``
   (a group of orbit frames as one ray batch), ``make_animated_renderer``
   (deform → refit → table update → trace, per frame), both through the BVH4
@@ -223,18 +223,20 @@ def bvh_bits_equal(parity, got, want, what: str) -> int:
 
 
 def run_sort_slice(rt, timer, smi, main_image, tex, bg, W, H):
-    """The build's radix-sort path: kernels K3 (digit histogram), K4 (stable
-    rank) and K5 (exclusive scan) against their plain versions, then
-    ``build_bvh(sort_impl="cuda")`` and ``build_bvh(validate=True)`` at full
-    size.  Emits the phases ``sort_kernels_vs_plain`` and ``sort_path`` and
-    returns the three entries of the ``kernels`` line."""
+    """The build's radix-sort path: K3 (the count of all four digits, and its
+    one-digit per-block form ``digit_histogram``), K5 (the scan of the
+    counts) and K4 (the look-back pass that ranks and moves keys and values,
+    and its rank-only form ``digit_rank``) against their plain versions on
+    every output, then ``build_bvh(sort_impl="cuda")`` and
+    ``build_bvh(validate=True)`` at full size.  Emits the phases
+    ``sort_kernels_vs_plain`` and ``sort_path`` and returns the three
+    entries of the ``kernels`` line."""
     from unitysimpleraytracing_tpu_torch import constants as C
-    from unitysimpleraytracing_tpu_torch.ops import scan, sort, sort_radix_cuda
+    from unitysimpleraytracing_tpu_torch.ops import scan, sort, sort_radix_cuda as R
     from unitysimpleraytracing_tpu_torch.utils import parity, validate
 
-    K3, K4, K5 = sort_radix_cuda.digit_histogram, sort_radix_cuda.digit_rank, scan.exclusive_scan
-    BLOCK = sort_radix_cuda.BLOCK
-    shifts = [p * C.RADIX_BITS for p in range(C.NUM_PASSES)]
+    K5 = scan.exclusive_scan
+    BLOCK = R.BLOCK
     rng = np.random.default_rng(2)
 
     scene_260k = rt.build_scene(rt.terrain_mesh(res=362, size=160.0, amplitude=20.0, seed=1))
@@ -245,49 +247,77 @@ def run_sort_slice(rt, timer, smi, main_image, tex, bg, W, H):
     def dev_keys(arr):
         return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int64)).cuda()
 
+    def kind_keys(kind, n):
+        r = np.random.default_rng(n)
+        return dev_keys({
+            "random": lambda: r.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.int64),
+            "duplicates": lambda: r.choice([0, 1, 5, 1 << 29, (1 << 30) - 1], size=n),
+            "equal": lambda: np.full(n, 0x12345678),
+            "padding": lambda: np.full(n, C.KEY_PADDING),
+        }[kind]())
+
     # ---- sort_kernels_vs_plain ------------------------------------------
-    err = {"digit_histogram": 0.0, "digit_rank": 0.0, "exclusive_scan": 0.0}
+    err = dict.fromkeys(("digit_counts", "digit_histogram", "exclusive_scan", "digit_pass",
+                         "digit_rank"), 0.0)
+
+    def hold(kernel, got, want, what):
+        assert got.dtype == want.dtype and torch.equal(got, want), \
+            f"{kernel} differs from its plain version: {what}"
+        err[kernel] = max(err[kernel], max_abs_diff(got, want))
+
+    def check_sort(keys, values, what):
+        """The count, its scan and the four passes, every output against the
+        plain versions (and, on whole blocks, the per-block forms), the
+        result against the stable torch.sort."""
+        counts = R.digit_counts(keys)
+        torch.cuda.synchronize()
+        hold("digit_counts", counts, R.digit_counts_plain(keys), what)
+        bases = K5(counts)
+        hold("exclusive_scan", bases, scan.exclusive_scan_plain(counts), what)
+        k, v = keys, values
+        for shift in R.SHIFTS:
+            got = R.digit_pass(k, v, bases, shift, observe=True)
+            torch.cuda.synchronize()
+            want = R.digit_pass_plain(k, v, bases, shift)
+            for name, g, w in zip(("keys_out", "values_out", "dst", "hist_t", "scanned"), got, want):
+                hold("digit_pass", g, w, f"{what}, shift {shift}, {name}")
+            if k.shape[0] % BLOCK == 0:
+                hist_t = R.digit_histogram(k, shift)
+                hold("digit_histogram", hist_t, R.digit_histogram_plain(k, shift),
+                     f"{what}, shift {shift}")
+                dst = R.digit_rank(k, got[4], shift)
+                hold("digit_rank", dst, R.digit_rank_plain(k, got[4], shift),
+                     f"{what}, shift {shift}")
+                assert torch.equal(hist_t, got[3]) and torch.equal(dst, got[2]), what
+            k, v = got[0], got[1]
+        want_k, perm = torch.sort(keys, stable=True)
+        assert torch.equal(k, want_k) and torch.equal(v, values[perm]), what
+
     cases = []
-    block_cases = [
+    for name, keys in (
         ("morton keys of the 260,642-triangle scene (capacity 261,120)", scene_260k.morton),
         ("morton keys of the 1,048,352-triangle scene (capacity 1,048,576)", scene_1m.morton),
-        ("2^20 random 32-bit keys",
-         dev_keys(rng.integers(0, 2**32, size=1 << 20, dtype=np.uint64))),
-        ("65,536 equal keys", dev_keys(np.full(1 << 16, 0x2AAAAAAA))),
-        ("65,536 padding keys", dev_keys(np.full(1 << 16, C.KEY_PADDING))),
-    ]
-    for name, keys in block_cases:
-        n = keys.shape[0]
-        values = torch.arange(n, dtype=torch.int32, device="cuda")
-        k, v = keys, values
-        for shift in shifts:
-            hist_t = K3(k, shift)
-            scanned = K5(hist_t)
-            dst = K4(k, scanned, shift)
-            torch.cuda.synchronize()
-            for kernel, got, want in (
-                ("digit_histogram", hist_t, sort_radix_cuda.digit_histogram_plain(k, shift)),
-                ("exclusive_scan", scanned, scan.exclusive_scan_plain(hist_t)),
-                ("digit_rank", dst, sort_radix_cuda.digit_rank_plain(k, scanned, shift)),
-            ):
-                assert torch.equal(got, want), f"{kernel} differs from its plain version: {name}, shift {shift}"
-                err[kernel] = max(err[kernel], max_abs_diff(got, want))
-            k, v = sort.scatter_pass(k, v, dst)
-        want_k, perm = torch.sort(keys, stable=True)
-        assert torch.equal(k, want_k) and torch.equal(v, values[perm]), name
-        if "equal" in name or "padding" in name:
-            assert torch.equal(v, values), "equal keys must keep their order"
-        cases.append({"case": name, "keys": n, "blocks": n // BLOCK, "passes": len(shifts),
+        ("2^20 random 32-bit keys", kind_keys("random", 1 << 20)),
+    ):
+        check_sort(keys, torch.arange(keys.shape[0], dtype=torch.int32, device="cuda"), name)
+        cases.append({"case": name, "keys": int(keys.shape[0]), "passes": 4,
                       "bit_identical": True})
+    # The acceptance list: every size, every key kind, all four passes.
+    for n in (1, 1023, 1024, 1025, 1 << 20, (1 << 22) + 3):
+        for kind in ("random", "duplicates", "equal", "padding"):
+            values = torch.from_numpy(rng.permutation(n).astype(np.int32)).cuda()
+            check_sort(kind_keys(kind, n), values, f"{kind} n={n}")
+            cases.append({"case": f"{kind} n={n}", "keys": n, "passes": 4,
+                          "bit_identical": True})
     for n in (1, 1023, 1025, 5000):
-        keys = dev_keys(rng.integers(0, 2**32, size=n, dtype=np.uint64))
+        keys = kind_keys("random", n)
         values = torch.arange(n, dtype=torch.int32, device="cuda")
         gk, gv = sort.sort_key_val(keys, values, impl="cuda")
         wk, wv = sort.sort_key_val(keys, values, impl="torch")
         assert torch.equal(gk, wk) and torch.equal(gv, wv), f"ragged n={n}"
         cases.append({"case": f"ragged n={n} through sort_key_val(impl='cuda')",
                       "keys": n, "bit_identical": True})
-    # The scan alone: the histogram's shape, two levels of totals, int64, float32.
+    # The scan alone: the old histogram's shape, two levels of totals, int64, float32.
     scan_cases = []
     for name, x in (
         ("256 x 1024 histogram shape, int32",
@@ -301,8 +331,7 @@ def run_sort_slice(rt, timer, smi, main_image, tex, bg, W, H):
         got = K5(x)
         levels = K5.device_launches - before
         want = scan.exclusive_scan_plain(x)
-        assert torch.equal(got, want), name
-        err["exclusive_scan"] = max(err["exclusive_scan"], max_abs_diff(got, want))
+        hold("exclusive_scan", got, want, name)
         scan_cases.append({"case": name, "elements": int(x.shape[0]),
                            "device_launches": levels, "bit_identical": True})
     assert [c["device_launches"] for c in scan_cases] == [1, 1, 1]
@@ -319,96 +348,123 @@ def run_sort_slice(rt, timer, smi, main_image, tex, bg, W, H):
                        "max_err_over_running_sum_of_magnitudes_vs_float64": float_err,
                        "same_vs_plain_cumsum": float_err_plain})
 
-    # Times at the 1 M-key shape (the 1,048,352-triangle scene's keys, first
-    # pass), CUDA events, median of 5 after a warm-up, cold L2.
-    keys = scene_1m.morton
-    values = scene_1m.tri_index
+    # Times at the 1 M-key shape (the 1,048,352-triangle scene's keys and
+    # triangle ids), CUDA events, median of 5 after a warm-up, cold L2, the
+    # device held while the host enqueues.
+    keys, values = scene_1m.morton, scene_1m.tri_index
     n = keys.shape[0]
     nblocks = n // BLOCK
-    hist_t = K3(keys, 0)
-    scanned = K5(hist_t)
-    dst = K4(keys, scanned, 0)
-    block_ids = torch.arange(nblocks, device="cuda").repeat_interleave(BLOCK)
+    counts = R.digit_counts(keys)
+    bases = K5(counts)
+    _, _, dst, hist_t, scanned = R.digit_pass(keys, values, bases, 0, observe=True)
+    shifts_t = torch.tensor(R.SHIFTS, device="cuda")
+    rows_t = torch.arange(C.NUM_PASSES, device="cuda") * C.NUM_BUCKETS
 
-    def cold(fn, iters=5, queued=False):
+    def cold(fn, iters=5, queued=True):
         return timer.median_ms(fn, iters=iters, cold=True, queued=queued)
 
-    def library_histogram():
-        return torch.bincount(block_ids * C.NUM_BUCKETS + (keys & 255),
-                              minlength=nblocks * C.NUM_BUCKETS)
+    def library_counts():
+        return torch.bincount((((keys[:, None] >> shifts_t) & 255) + rows_t).reshape(-1),
+                              minlength=C.NUM_PASSES * C.NUM_BUCKETS)
 
-    assert torch.equal(library_histogram().reshape(nblocks, C.NUM_BUCKETS).t().reshape(-1).int(),
-                       hist_t)
-    shifted = torch.cumsum(hist_t, 0, dtype=torch.int32)
-    assert torch.equal(shifted[:-1], scanned[1:])
-    bytes_k3 = n * 8 + nblocks * 1024
-    bytes_k5 = 2 * 4 * hist_t.shape[0]
-    bytes_k4 = n * 8 + nblocks * 1024 + n * 4
+    def library_pass(shift=0):
+        perm = torch.sort(sort.digit_of(keys, shift), stable=True).indices
+        return keys[perm], values[perm]
+
+    assert torch.equal(library_counts().int(), counts)
+    lk, lv = library_pass()
+    ko, vo = R.digit_pass(keys, values, bases, 0)
+    assert torch.equal(lk, ko) and torch.equal(lv, vo)
+    del lk, lv, ko, vo
     times = {
-        "digit_histogram": {
-            "ms": cold(lambda: K3(keys, 0), queued=True),
-            "plain_ms": cold(lambda: sort_radix_cuda.digit_histogram_plain(keys, 0), queued=True),
-            "library_ms": cold(library_histogram, queued=True),
-            "library": "torch.bincount(block * 256 + (keys & 255), minlength=256 * nblocks), "
-                       "index arithmetic included, block-major result",
-            "min_bytes": bytes_k3,
+        "digit_counts": {
+            "ms": cold(lambda: R.digit_counts(keys)),
+            "plain_ms": cold(lambda: R.digit_counts_plain(keys)),
+            "library_ms": cold(library_counts),
+            "library": "torch.bincount of the four digits (index arithmetic included)",
+            "min_bytes": n * 8 + 4 * 1024,
+            "one_digit_per_block_form": {
+                "ms": cold(lambda: R.digit_histogram(keys, 0)),
+                "plain_ms": cold(lambda: R.digit_histogram_plain(keys, 0)),
+                "min_bytes": n * 8 + nblocks * 1024},
         },
         "exclusive_scan": {
-            "ms": cold(lambda: K5(hist_t), queued=True),
-            "ms_host_paced": cold(lambda: K5(hist_t)),
-            "plain_ms": cold(lambda: scan.exclusive_scan_plain(hist_t), queued=True),
-            "library_ms": cold(lambda: torch.cumsum(hist_t, 0, dtype=torch.int32), queued=True),
-            "library_ms_host_paced": cold(lambda: torch.cumsum(hist_t, 0, dtype=torch.int32)),
-            "library": "torch.cumsum(hist_t, 0, dtype=torch.int32) (inclusive; no shift)",
-            "min_bytes": bytes_k5,
+            "ms": cold(lambda: K5(counts)),
+            "plain_ms": cold(lambda: scan.exclusive_scan_plain(counts)),
+            "library_ms": cold(lambda: torch.cumsum(counts, 0, dtype=torch.int32)),
+            "library": "torch.cumsum(counts, 0, dtype=torch.int32) (inclusive; no shift)",
+            "min_bytes": 2 * 4 * counts.shape[0],
+            "at_262144": {"ms": cold(lambda: K5(hist_t)),
+                          "library_ms": cold(lambda: torch.cumsum(hist_t, 0, dtype=torch.int32)),
+                          "min_bytes": 2 * 4 * hist_t.shape[0]},
         },
-        "digit_rank": {
-            "ms": cold(lambda: K4(keys, scanned, 0), queued=True),
-            "plain_ms": cold(lambda: sort_radix_cuda.digit_rank_plain(keys, scanned, 0), iters=3,
-                             queued=True),
-            "library_ms": None,
-            "library": "none: no single PyTorch call gives a stable per-block rank",
-            "min_bytes": bytes_k4,
+        "digit_pass": {
+            "ms": cold(lambda: R.digit_pass(keys, values, bases, 0)),
+            "ms_shift_24": cold(lambda: R.digit_pass(keys, values, bases, 24)),
+            "plain_ms": cold(lambda: R.digit_pass_plain(keys, values, bases, 0), iters=3),
+            "library_ms": cold(library_pass),
+            "library": "torch.sort(digit_of(keys, 0), stable=True) and the two gathers",
+            "min_bytes": n * 24 + 4 * 1024,
+            "with_observables_ms": cold(lambda: R.digit_pass(keys, values, bases, 0,
+                                                             observe=True)),
+            "rank_only_form": {
+                "ms": cold(lambda: R.digit_rank(keys, scanned, 0)),
+                "plain_ms": cold(lambda: R.digit_rank_plain(keys, scanned, 0), iters=3),
+                "min_bytes": n * 12 + nblocks * 1024},
         },
     }
-    for t in times.values():
-        # One add or compare per element against 8 bytes and more: bytes bound.
+    for t in (times["digit_counts"], times["exclusive_scan"], times["digit_pass"]):
+        # A few integer operations a key against 8 bytes and more: bytes bound.
         t["bound_ms"] = t["min_bytes"] / PEAK_BYTES_PER_S * 1e3
         t["bound_by"] = "bytes"
-    scatter_ms = cold(lambda: sort.scatter_pass(keys, values, dst))
-    pass_ms = cold(lambda: sort_radix_cuda._sort_pass(keys, values, 0))
+    pass_debug_ms = cold(lambda: R.cuda_pass_debug(keys, values, 0))
 
-    def torch_sort():
-        return sort.sort_key_val(keys, values, impl="torch")
+    def in_turns(fns, iters=5):
+        out = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            out[k].append(cold(fns[k], iters=iters))
+        return out
 
-    def cuda_sort():
-        return sort.sort_key_val(keys, values, impl="cuda")
-
-    sort_1m = {"torch": [], "cuda": []}
-    for which in ("torch", "cuda", "cuda", "torch"):
-        sort_1m[which].append(cold(torch_sort if which == "torch" else cuda_sort))
+    sort_1m = in_turns({"cuda": lambda: sort.sort_key_val(keys, values, impl="cuda"),
+                        "torch": lambda: sort.sort_key_val(keys, values, impl="torch")})
+    pass_1m = in_turns({"digit_pass": lambda: R.digit_pass(keys, values, bases, 0),
+                        "torch.sort_of_the_digit_and_gathers": library_pass})
     emit("sort_kernels_vs_plain",
-         tolerance="bit-identical for int32/int64; float32 scan within 1e-5 of the running "
-                   "sum of magnitudes (tree and look-back summation order)",
+         tolerance="bit-identical for int32/int64 (every output of every kernel); float32 "
+                   "scan within 1e-5 of the running sum of magnitudes (tree and look-back "
+                   "summation order)",
          cases=cases, scan_cases=scan_cases, max_abs_err=err,
-         times_at_1m_keys={"keys": n, "blocks": nblocks, "histogram_elements": int(hist_t.shape[0]),
-                           "kernels": times, "scatter_ms": scatter_ms, "one_pass_ms": pass_ms,
-                           "sum_of_parts_ms": times["digit_histogram"]["ms"]
-                           + times["exclusive_scan"]["ms"] + times["digit_rank"]["ms"] + scatter_ms,
-                           "four_pass_sort_ms_in_turns": sort_1m},
-         timing="CUDA events, median of 5 after a warm-up, 256 MB written before each sample; "
-                "kernels, their plain versions and library calls with the device held while "
-                "the host enqueues (*_host_paced: without)",
+         times_at_1m_keys={"keys": n, "blocks": nblocks, "tiles": -(-n // R.TILE),
+                           "kernels": times, "cuda_pass_debug_ms": pass_debug_ms,
+                           "sum_of_parts_ms": times["digit_counts"]["ms"]
+                           + times["exclusive_scan"]["ms"] + 4 * times["digit_pass"]["ms"],
+                           "four_pass_sort_ms_in_turns": sort_1m,
+                           "one_pass_ms_in_turns": pass_1m},
+         timing="CUDA events, median of 5 after a warm-up, 256 MB written before each sample, "
+                "the device held while the host enqueues",
          nvidia_smi=smi)
-    del block_ids, shifted
+    del dst, hist_t, scanned
 
     # ---- sort_path ---------------------------------------------------------
     # The slice's main path, counts set to 0 just before and read just after.
-    K3.launches = K4.launches = K5.launches = K5.device_launches = 0
+    counters = (R.digit_counts, R.digit_pass, R.digit_histogram, R.digit_rank)
+
+    def launches():
+        out = {f.__name__: f.launches for f in counters}
+        out["exclusive_scan"] = K5.launches
+        out["exclusive_scan_device_launches"] = K5.device_launches
+        return out
+
+    for f in (*counters, K5):
+        f.launches = 0
+    K5.device_launches = 0
     bvh_cuda = rt.build_bvh(scene_260k, sort_impl="cuda", builder="karras")
     torch.cuda.synchronize()
-    after_build = (K3.launches, K4.launches, K5.launches, K5.device_launches)
-    assert after_build == (4, 4, 4, 4), f"one 'cuda' sort launched {after_build}"
+    after_build = launches()
+    assert after_build == {"digit_counts": 1, "digit_pass": 4, "digit_histogram": 0,
+                           "digit_rank": 0, "exclusive_scan": 1,
+                           "exclusive_scan_device_launches": 1}, \
+        f"one 'cuda' sort launched {after_build}"
     cam = rt.make_camera(eye=(110.0, 90.0, 140.0), target=(0.0, 0.0, 0.0), width=W, height=H)
     frame = rt.render_frame(scene_260k, bvh_cuda, cam, tex, bg, shadows=True)
     image_cuda = rt.frame_to_image(frame)
@@ -416,11 +472,12 @@ def run_sort_slice(rt, timer, smi, main_image, tex, bg, W, H):
     bvh_validated = rt.build_bvh(scene_260k, builder="karras", validate=True)
     torch.cuda.synchronize()
     validate_s = time.perf_counter() - t0
-    path_launches = {"digit_histogram": K3.launches, "digit_rank": K4.launches,
-                     "exclusive_scan": K5.launches,
-                     "exclusive_scan_device_launches": K5.device_launches}
-    assert path_launches == {"digit_histogram": 8, "digit_rank": 8, "exclusive_scan": 8,
-                             "exclusive_scan_device_launches": 8}, path_launches
+    path_launches = launches()
+    # validate=True drives every pass of the "cuda" engine on its own: the
+    # count, its scan and one pass for each of the four digits.
+    assert path_launches == {"digit_counts": 5, "digit_pass": 8, "digit_histogram": 0,
+                             "digit_rank": 0, "exclusive_scan": 5,
+                             "exclusive_scan_device_launches": 5}, path_launches
 
     assert image_cuda.tobytes() == main_image.tobytes(), \
         "the frame from the sort_impl='cuda' tree differs from the main path's frame"
@@ -436,8 +493,7 @@ def run_sort_slice(rt, timer, smi, main_image, tex, bg, W, H):
                    "1,048,352 triangles, cuda vs torch")
 
     # A deliberately corrupted pass must not get past the validators.
-    ko, vo, hist_t, scanned = sort_radix_cuda.cuda_pass_debug(
-        scene_260k.morton, scene_260k.tri_index, 0)
+    ko, vo, hist_t, scanned = R.cuda_pass_debug(scene_260k.morton, scene_260k.tri_index, 0)
     validate.validate_sort_pass(scene_260k.morton, scene_260k.tri_index, ko, vo, hist_t,
                                 scanned, 0, BLOCK)
     bad = ko.clone()
@@ -452,63 +508,70 @@ def run_sort_slice(rt, timer, smi, main_image, tex, bg, W, H):
         raise AssertionError("validate_sort_pass accepted a pass with two keys swapped")
 
     # 2^22 random keys: the stable permutation is unique.
-    big = dev_keys(rng.integers(0, 2**32, size=1 << 22, dtype=np.uint64))
+    big = kind_keys("random", 1 << 22)
     big_v = torch.arange(1 << 22, dtype=torch.int32, device="cuda")
-    gk, gv = sort_radix_cuda.radix_sort_key_val_cuda(big, big_v)
+    gk, gv = R.radix_sort_key_val_cuda(big, big_v)
     wk, perm = torch.sort(big, stable=True)
     assert torch.equal(gk, wk) and torch.equal(gv, big_v[perm])
-    sort_4m = {"torch": [], "cuda": []}
-    for which in ("torch", "cuda", "cuda", "torch"):
-        sort_4m[which].append(cold(
-            (lambda: sort.sort_key_val(big, big_v, impl="torch")) if which == "torch"
-            else (lambda: sort.sort_key_val(big, big_v, impl="cuda"))))
-    del big, big_v, gk, gv, wk, perm
+    big_bases = K5(R.digit_counts(big))
+    sort_4m = in_turns({"cuda": lambda: sort.sort_key_val(big, big_v, impl="cuda"),
+                        "torch": lambda: sort.sort_key_val(big, big_v, impl="torch")})
+    pass_4m = in_turns({
+        "digit_pass": lambda: R.digit_pass(big, big_v, big_bases, 0),
+        "torch.sort_of_the_digit_and_gathers": lambda: (
+            lambda p: (big[p], big_v[p]))(torch.sort(sort.digit_of(big, 0), stable=True).indices)})
+    del big, big_v, gk, gv, wk, perm, big_bases
 
     builds = {}
     for label, scene, iters in (("260642", scene_260k, 5), ("1048352", scene_1m, 3)):
-        builds[label] = {"torch": [], "cuda": []}
-        for which in ("torch", "cuda", "cuda", "torch"):
-            builds[label][which].append(timer.median_ms(
-                lambda: rt.build_bvh(scene, sort_impl=which, builder="karras"), iters=iters))
+        builds[label] = {}
+        for builder in ("karras", "sah_free"):
+            builds[label][builder] = {"torch": [], "cuda": []}
+            for which in ("torch", "cuda", "cuda", "torch"):
+                builds[label][builder][which].append(timer.median_ms(
+                    lambda: rt.build_bvh(scene, sort_impl=which, builder=builder),
+                    iters=iters))
         builds[label]["sort_only"] = {
             which: timer.median_ms(
                 lambda: sort.sort_key_val(scene.morton, scene.tri_index, impl=which))
             for which in ("torch", "cuda", "radix")}
     emit("sort_path", triangles=[260642, 1048352], bvh_arrays_bit_identical=arrays,
-         launches_of_one_cuda_sort={"digit_histogram": after_build[0],
-                                    "digit_rank": after_build[1],
-                                    "exclusive_scan": after_build[2],
-                                    "exclusive_scan_device_launches": after_build[3]},
-         launches_on_the_path=path_launches,
+         launches_of_one_cuda_sort=after_build, launches_on_the_path=path_launches,
          frame_from_cuda_tree_equals_main_path_frame=True,
          validate_true_seconds_260k=validate_s, corrupted_pass_raised=corrupted,
          sort_4m_keys_identical_to_stable_torch_sort=True,
-         sort_4m_keys_ms_in_turns=sort_4m, build_ms_in_turns=builds,
-         timing="CUDA events, median of 5 (3 at 1,048,352) after a warm-up; sorts cold L2",
+         sort_4m_keys_ms_in_turns=sort_4m, pass_4m_keys_ms_in_turns=pass_4m,
+         build_ms_in_turns=builds,
+         timing="sorts and passes: CUDA events, median of 5, cold L2, the device held while "
+                "the host enqueues; builds and sort_only: CUDA events at the host's pace, "
+                "median of 5 (3 at 1,048,352) after a warm-up",
          nvidia_smi=smi)
 
     sources = {
-        "digit_histogram": ("unitysimpleraytracing_tpu_torch/csrc/radix_sort.cu",
-                            "unitysimpleraytracing_tpu/ops/sort_pallas.py:60",
-                            "ops/sort_pallas.py::_hist_kernel",
-                            f"{n} int64 keys in {nblocks} blocks -> ({256 * nblocks},) int32"),
-        "digit_rank": ("unitysimpleraytracing_tpu_torch/csrc/radix_sort.cu",
-                       "unitysimpleraytracing_tpu/ops/sort_pallas.py:68",
+        "digit_counts": ("unitysimpleraytracing_tpu/ops/sort_pallas.py:60",
+                         "ops/sort_pallas.py::_hist_kernel",
+                         f"{n} int64 keys -> (1024,) int32, the four passes' digit counts; "
+                         "digit_histogram, its one-digit form: (256 * nblocks,) int32"),
+        "digit_pass": ("unitysimpleraytracing_tpu/ops/sort_pallas.py:68",
                        "ops/sort_pallas.py::_rank_kernel",
-                       f"{n} int64 keys, ({256 * nblocks},) int32 bases -> ({n},) int32"),
-        "exclusive_scan": ("unitysimpleraytracing_tpu_torch/csrc/scan.cu",
-                           "unitysimpleraytracing_tpu/ops/scan_pallas.py:36",
+                       f"{n} int64 keys + int32 values, (1024,) int32 bases -> keys and "
+                       "values moved; digit_rank, its rank-only form: (n,) int32"),
+        "exclusive_scan": ("unitysimpleraytracing_tpu/ops/scan_pallas.py:36",
                            "ops/scan_pallas.py::_kernel",
-                           f"({256 * nblocks},) int32, 1 device launch a call"),
+                           "(1024,) int32 digit counts, 1 device launch a call"),
     }
     entries = []
-    for name in ("digit_histogram", "digit_rank", "exclusive_scan"):
-        source, replaces, function, shape = sources[name]
+    for name in ("digit_counts", "digit_pass", "exclusive_scan"):
+        replaces, function, shape = sources[name]
         t = times[name]
+        source = "unitysimpleraytracing_tpu_torch/csrc/" + (
+            "scan.cu" if name == "exclusive_scan" else "radix_sort.cu")
+        max_err = max(err[name], err.get({"digit_counts": "digit_histogram",
+                                          "digit_pass": "digit_rank"}.get(name, name), 0.0))
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "replaces_function": function, "launches": path_launches[name],
-            "max_abs_err": err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "max_abs_err": max_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": shape,
         })

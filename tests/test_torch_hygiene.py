@@ -2,6 +2,7 @@
 runs on the card unless asked for the CPU, and its kernel wrappers take the
 plain version only because a tensor lies on the CPU."""
 import os
+import re
 import subprocess
 import sys
 
@@ -144,7 +145,7 @@ def test_validator_default_device_is_the_card_and_raises_without_one():
 
 
 @pytest.mark.parametrize("wrapper", ["digit_histogram", "digit_rank", "exclusive_scan",
-                                     "sort_key_val", "build_bvh"])
+                                     "sort_key_val", "build_bvh", "digit_counts", "digit_pass"])
 def test_sort_wrappers_on_cpu_take_plain_versions_and_count_no_launch(wrapper):
     rng = np.random.default_rng(0)
     keys = torch.from_numpy(rng.integers(0, 2**32, size=4096, dtype=np.uint64).astype(np.int64))
@@ -157,6 +158,13 @@ def test_sort_wrappers_on_cpu_take_plain_versions_and_count_no_launch(wrapper):
         assert torch.equal(pcu.digit_rank(keys, bases, 8), pcu.digit_rank_plain(keys, bases, 8))
     elif wrapper == "exclusive_scan":
         assert torch.equal(pscan.exclusive_scan(hist_t), bases)
+    elif wrapper == "digit_counts":
+        assert torch.equal(pcu.digit_counts(keys), pcu.digit_counts_plain(keys))
+    elif wrapper == "digit_pass":
+        counts = pscan.exclusive_scan_plain(pcu.digit_counts_plain(keys))
+        got = pcu.digit_pass(keys, vals, counts, 8, observe=True)
+        for g, w in zip(got, pcu.digit_pass_plain(keys, vals, counts, 8)):
+            assert torch.equal(g, w)
     elif wrapper == "sort_key_val":
         got = psort.sort_key_val(keys, vals, impl="cuda")
         want = psort.sort_key_val(keys, vals, impl="torch")
@@ -166,11 +174,13 @@ def test_sort_wrappers_on_cpu_take_plain_versions_and_count_no_launch(wrapper):
         got = pt.build_bvh(scene, sort_impl="cuda", builder="karras")
         assert torch.equal(got.sorted_tri, pt.build_bvh(scene, builder="karras").sorted_tri)
     assert pcu.digit_histogram.launches == 0 and pcu.digit_rank.launches == 0
+    assert pcu.digit_counts.launches == 0 and pcu.digit_pass.launches == 0
     assert pscan.exclusive_scan.launches == 0 and pscan.exclusive_scan.device_launches == 0
 
 
 @pytest.mark.parametrize("name, entry_points", [
-    (pcu.KERNEL_NAME, ["digit_histogram_launch", "digit_rank_launch"]),
+    (pcu.KERNEL_NAME, ["digit_histogram_launch", "digit_rank_launch", "digit_count_launch",
+                       "digit_pass_launch"]),
     (pscan.KERNEL_NAME, ["scan_launch"]),
 ])
 def test_sort_kernel_sources_and_build_recipe_are_in_the_package(name, entry_points):
@@ -191,7 +201,8 @@ def test_port_calls_no_library_stand_in_for_a_kernel():
     import inspect
 
     for fn in (pcu.digit_histogram, pcu.digit_rank, pscan.exclusive_scan, pscan._scan_on_card,
-               pcu._sort_pass):
+               pcu._sort_pass, pcu.digit_counts, pcu.digit_pass, pcu.radix_sort_key_val_cuda,
+               pcu._stream_scratch, pcu._sort_on_card):
         src = inspect.getsource(fn)
         for banned in ("bincount", "histc", "cumsum", "torch.sort", "argsort", "compile"):
             assert banned not in src, (fn.__name__, banned)
@@ -360,6 +371,11 @@ def test_build_bvh_default_needs_no_builder_and_launches_nothing_on_cpu():
      ["atomicAdd(control", "st.release.gpu", "ld.acquire.gpu", "__ballot_sync"]),
     ("trace_bvh4", "ops/trace_pallas4.py::_make_kernel4",
      ["__trap()", "__ldg", "k = stack[--sp]"]),
+    ("radix_sort", "ops/sort_pallas.py::_hist_kernel",
+     ["atomicAdd(accum", "atomicExch(ticket", "__all_sync", "longlong2"]),
+    ("radix_sort", "ops/sort_pallas.py::_rank_kernel",
+     ["atomicAdd(control", "st.relaxed.gpu", "ld.relaxed.gpu", "__ballot_sync",
+      "stage[pos[r]] = key[r]", "__trap()"]),
 ])
 def test_redesigned_kernels_keep_their_replaces_note(name, replaces, needs):
     from unitysimpleraytracing_tpu_torch.utils import kernel_build
@@ -392,6 +408,28 @@ def test_scan_on_a_cuda_tensor_has_no_path_to_the_plain_version():
         for banned in ("try:", "except", "cumsum", "compile"):
             assert banned not in text, banned
     assert "_plain" not in launcher
+
+
+@pytest.mark.parametrize("wrapper, plain", [
+    ("digit_counts", "digit_counts_plain"), ("digit_pass", "digit_pass_plain"),
+    ("digit_histogram", "digit_histogram_plain"), ("digit_rank", "digit_rank_plain"),
+])
+def test_sort_wrappers_on_a_cuda_tensor_have_no_path_to_the_plain_versions(wrapper, plain):
+    """Each sort wrapper names its plain version once, under the test that
+    the keys lie on the CPU; past it the kernel is launched (one launch, no
+    ``try``) or the call raises."""
+    import inspect
+
+    src = inspect.getsource(getattr(pcu, wrapper))
+    body = src[src.index('"""', src.index('"""') + 3) + 3:]  # past the docstring
+    assert body.count(plain) == 1
+    cpu_branch = body.index('if keys.device.type == "cpu":')
+    assert cpu_branch < body.index(plain) < body.index("_load_kernel()")
+    launches = [m.start() for m in re.finditer(r"(?<![\w.])launch\(", body)]
+    assert len(launches) == 1 and "raise" in body + inspect.getsource(pcu._check_launch)
+    assert launches[0] < body.index(f"{wrapper}.launches += 1")
+    for banned in ("try:", "except", "compile", "torch.jit", "bincount", "torch.sort", "cumsum"):
+        assert banned not in body, banned
 
 
 def test_kernel_ab_measures_on_the_card_only(tmp_path):

@@ -356,20 +356,161 @@ def test_scan_float_within_tolerance(card):
     assert np.all(np.abs(got - want) <= bound)
 
 
+_LAUNCH_COUNTERS = ("digit_counts", "digit_pass", "digit_histogram", "digit_rank")
+
+
+def _sort_launches():
+    return (*(getattr(sort_radix_cuda, f).launches for f in _LAUNCH_COUNTERS),
+            scan.exclusive_scan.launches, scan.exclusive_scan.device_launches)
+
+
 @pytest.mark.parametrize("n", [1, 1023, 1025, 5000, 1 << 20])
 def test_cuda_sort_equals_stable_torch_sort_and_counts_launches(card, n):
+    """One sort is exactly six launches: the count, K5 over its 1024 counts,
+    and four passes; nothing of the per-block forms."""
     keys = _keys("random", n, card)
     vals = torch.arange(n, dtype=torch.int32, device=card)
-    h0 = sort_radix_cuda.digit_histogram.launches
-    r0 = sort_radix_cuda.digit_rank.launches
-    s0 = scan.exclusive_scan.launches
+    before = _sort_launches()
     ko, vo = sort.sort_key_val(keys, vals, impl="cuda")
     torch.cuda.synchronize()
-    assert sort_radix_cuda.digit_histogram.launches == h0 + 4
-    assert sort_radix_cuda.digit_rank.launches == r0 + 4
-    assert scan.exclusive_scan.launches == s0 + 4
+    assert tuple(a - b for a, b in zip(_sort_launches(), before)) == (1, 4, 0, 0, 1, 1)
     wk, wv = sort.sort_key_val(keys, vals, impl="torch")
     assert torch.equal(ko, wk) and torch.equal(vo, wv)
+
+
+# The acceptance list of the count and the pass: every size, every key kind,
+# every shift, every output bit-identical to the plain versions.
+_PASS_SIZES = [1, 1023, 1024, 1025, 1 << 20, (1 << 22) + 3]
+
+
+@pytest.mark.parametrize("kind", ["random", "duplicates", "equal", "padding"])
+@pytest.mark.parametrize("n", _PASS_SIZES)
+def test_count_and_pass_bit_identical_to_plain(card, n, kind):
+    keys = _keys(kind, n, card)
+    vals = torch.from_numpy(np.random.default_rng(n).permutation(n).astype(np.int32)).to(card)
+    before = sort_radix_cuda.digit_counts.launches
+    counts = sort_radix_cuda.digit_counts(keys)
+    torch.cuda.synchronize()
+    assert sort_radix_cuda.digit_counts.launches == before + 1
+    want_counts = sort_radix_cuda.digit_counts_plain(keys)
+    assert torch.equal(counts, want_counts)
+    for shift in _SHIFTS:
+        d = sort.digit_of(keys, shift)
+        assert torch.equal(counts[shift * 32:shift * 32 + 256].long(), torch.bincount(d, minlength=256))
+    bases = scan.exclusive_scan(counts)
+    for shift in _SHIFTS:
+        before = sort_radix_cuda.digit_pass.launches
+        got = sort_radix_cuda.digit_pass(keys, vals, bases, shift, observe=True)
+        torch.cuda.synchronize()
+        assert sort_radix_cuda.digit_pass.launches == before + 1
+        want = sort_radix_cuda.digit_pass_plain(keys, vals, bases, shift)
+        for name, g, w in zip(("keys_out", "values_out", "dst", "hist_t", "scanned"), got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), (name, shift)
+        # Without the observables the same keys and values move.
+        ko, vo = sort_radix_cuda.digit_pass(keys, vals, bases, shift)
+        assert torch.equal(ko, want[0]) and torch.equal(vo, want[1]), shift
+        # Stable by the digit: the permutation of a stable sort is unique.
+        order = torch.sort(sort.digit_of(keys, shift), stable=True).indices
+        assert torch.equal(ko, keys[order]) and torch.equal(vo, vals[order]), shift
+    if n % 1024 == 0:
+        for shift in _SHIFTS:
+            hist_t = sort_radix_cuda.digit_histogram(keys, shift)
+            scanned = scan.exclusive_scan(hist_t)
+            dst = sort_radix_cuda.digit_rank(keys, scanned, shift)
+            torch.cuda.synchronize()
+            assert torch.equal(hist_t, sort_radix_cuda.digit_histogram_plain(keys, shift))
+            assert torch.equal(dst, sort_radix_cuda.digit_rank_plain(keys, scanned, shift))
+            debug = sort_radix_cuda.cuda_pass_debug(keys, vals, shift)
+            assert torch.equal(debug[2], hist_t) and torch.equal(debug[3], scanned)
+
+
+def test_pass_moves_float_values_as_bits_and_refuses_other_widths(card):
+    keys = _keys("duplicates", 5000, card)
+    vals = torch.from_numpy(np.random.default_rng(3).normal(size=5000).astype(np.float32)).to(card)
+    vals[7] = float("nan")
+    vals[9] = -0.0
+    ko, vo = sort.sort_key_val(keys, vals, impl="cuda")
+    order = torch.sort(keys, stable=True).indices
+    assert torch.equal(ko, keys[order])
+    assert torch.equal(vo.view(torch.int32), vals[order].view(torch.int32))
+    for bad in (vals.double(), vals.half(), vals.long()):
+        with pytest.raises(TypeError, match="4-byte"):
+            sort.sort_key_val(keys, bad, impl="cuda")
+
+
+def test_cuda_sort_replays_from_a_graph_after_a_larger_eager_call(card):
+    """A sort captured in a CUDA graph replays bit-identical after eager
+    sorts of more tiles have grown the stream's scratch: the words the
+    capture used stay alive, and the eager calls move to the new ones."""
+    n = 65536 + 3
+    static_k = _keys("random", n, card).clone()
+    static_v = torch.arange(n, dtype=torch.int32, device=card)
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        sort.sort_key_val(static_k, static_v, impl="cuda")  # builds the kernels and the scratch
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        out_k, out_v = sort.sort_key_val(static_k, static_v, impl="cuda")
+    scratch = sort_radix_cuda._SCRATCH[(static_k.device.index, s.cuda_stream)]
+    captured_words = scratch.words
+    rng = np.random.default_rng(13)
+    for i, big in enumerate(((1 << 22) + 3, (1 << 22) + 4099, (1 << 20) + 1)):
+        y = torch.from_numpy(rng.integers(0, 2**32, size=big, dtype=np.uint64).astype(np.int64)).to(card)
+        yv = torch.arange(big, dtype=torch.int32, device=card)
+        x = torch.from_numpy(rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.int64)).to(card)
+        with torch.cuda.stream(s):
+            got_y = sort.sort_key_val(y, yv, impl="cuda")  # more tiles: the scratch grows
+            static_k.copy_(x)
+            g.replay()
+            got_y2 = sort.sort_key_val(y, yv, impl="cuda")
+        torch.cuda.synchronize()
+        wk, perm = torch.sort(x, stable=True)
+        assert torch.equal(out_k, wk) and torch.equal(out_v, perm.int()), i
+        wy, py = torch.sort(y, stable=True)
+        assert torch.equal(got_y[0], wy) and torch.equal(got_y[1], py.int()), i
+        assert torch.equal(got_y2[0], wy) and torch.equal(got_y2[1], py.int()), i
+    assert any(w is captured_words for w in scratch.kept)
+    assert scratch.words is not captured_words
+
+
+def test_pass_stops_on_bases_that_do_not_belong_to_the_keys(card):
+    """Bases that would move a key past the output trap the kernel instead of
+    writing there; in a process of its own, since a trap ends the CUDA
+    context."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "from unitysimpleraytracing_tpu_torch.ops import sort_radix_cuda as R\n"
+        "k = torch.arange(8192, dtype=torch.int64, device='cuda')\n"
+        "v = torch.zeros(8192, dtype=torch.int32, device='cuda')\n"
+        "b = torch.full((1024,), 1 << 20, dtype=torch.int32, device='cuda')\n"
+        "R.digit_pass(k, v, b, 0)\n"
+        "torch.cuda.synchronize()\n"
+        "print('no trap')\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=root,
+                         timeout=300, env=dict(os.environ, PYTHONPATH=root))
+    assert res.returncode != 0 and "no trap" not in res.stdout, res.stdout
+
+
+def test_hundred_sorts_in_a_row_on_one_scratch(card):
+    """The epochs and the count's totals move on the device from call to
+    call: 100 sorts of changing sizes on one stream, each right."""
+    rng = np.random.default_rng(14)
+    for i in range(100):
+        n = int(rng.integers(1, 300000))
+        kind = ("random", "duplicates", "equal", "padding")[i % 4]
+        keys = _keys(kind, n, card) if i % 5 else torch.from_numpy(
+            rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.int64)).to(card)
+        vals = torch.arange(n, dtype=torch.int32, device=card)
+        ko, vo = sort.sort_key_val(keys, vals, impl="cuda")
+        wk, perm = torch.sort(keys, stable=True)
+        assert torch.equal(ko, wk) and torch.equal(vo, perm.int()), (i, n, kind)
 
 
 def test_sort_wrappers_raise_on_what_the_kernels_do_not_take(card):

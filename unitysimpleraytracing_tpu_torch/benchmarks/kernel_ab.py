@@ -1,9 +1,10 @@
 """K1 (BVH4 traversal), K1c (its compressed-record variant), K2 (binary-record
-traversal), K5 (exclusive scan) and the frame with shadows, timed through the
-package's public entry points, to compare two checkouts on one card in turns.
+traversal), K5 (exclusive scan), the "cuda" sort (K3, K4) and the frame with
+shadows, timed through the package's public entry points, to compare two
+checkouts on one card in turns.
 
     python unitysimpleraytracing_tpu_torch/benchmarks/kernel_ab.py \\
-        [--root DIR] [--iters 7] [--cases k1,k2,k2_vs_k1,frame,k5] [--out FILE]
+        [--root DIR] [--iters 7] [--cases k1,k2,k2_vs_k1,frame,k5,sort] [--out FILE]
 
 ``--root DIR`` imports ``unitysimpleraytracing_tpu_torch`` from DIR (for
 example a parent commit unpacked with ``git archive`` into a git-ignored
@@ -30,11 +31,19 @@ warm one, the frame at the host's pace, as it runs.  Cases:
   primary rays and, on the terrains, shadow rays);
 - ``frame``: the frame with shadows on the default tree;
 - ``k5``: K5 at 262,144 and 65,280 int32 (the sort's histograms at 1 M keys
-  and at 260,642 triangles), in turns with ``torch.cumsum``.
+  and at 260,642 triangles), in turns with ``torch.cumsum``;
+- ``sort``: one digit pass of the ``"cuda"`` engine (``cuda_pass_debug``:
+  keys, values and the per-block observables) at 1,048,576 keys, and the
+  whole sort (``sort_key_val``) at 1,048,576 and 4,194,304 random 32-bit
+  keys and at the 260,642-triangle scene's Morton codes, each in turns with
+  ``impl="torch"`` (``torch.sort(stable=True)`` and a gather); the kernel
+  launches of one sort, by counter.  Only ``sort_key_val`` and
+  ``cuda_pass_debug`` are called, which every checkout of the port has.
 
-Each K1, K2 and K5 case carries a digest of what the kernel returned (t,
-tri, u, v bits and the records popped per ray; the scan's output), so two
-checkouts' runs show whether their kernels agree bit for bit.  Prints one
+Each K1, K2, K5 and sort case carries a digest of what the kernel returned
+(t, tri, u, v bits and the records popped per ray; the scan's output; the
+sorted keys and values, and a pass's observables), so two checkouts' runs
+show whether their kernels agree bit for bit.  Prints one
 JSON line, with the card's name and power limit and the compiler's register,
 spill and stack-frame report for each kernel it built.
 """
@@ -55,10 +64,11 @@ PKG_NAME = "unitysimpleraytracing_tpu_torch"
 THIS_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H = 1920, 1056
 SCAN_SIZES = (262144, 65280)
-CASES = ("k1", "k2", "k2_vs_k1", "frame", "k5")
+CASES = ("k1", "k2", "k2_vs_k1", "frame", "k5", "sort")
+SORT_SIZES = (1 << 20, 1 << 22)
 # Kernels whose compiler report (registers, spill, stack frame) the line
 # carries; one not built in the run reports nothing.
-PTXAS = ("trace_bvh4", "trace_bvh2", "scan")
+PTXAS = ("trace_bvh4", "trace_bvh2", "scan", "radix_sort")
 
 
 def digest(*tensors) -> str:
@@ -200,6 +210,67 @@ def _config3_tree(line, cases, timer, profiling, rt, trace_bvh4, trace_bvh2, sce
             timer, trace_bvh4, trace_bvh2, scene, bvh, rays, iters, cold)
 
 
+def _sort_launches():
+    """The kernel-launch counters of the sort's wrappers that this checkout
+    has, by name."""
+    from unitysimpleraytracing_tpu_torch.ops import scan, sort_radix_cuda
+
+    out = {name: getattr(sort_radix_cuda, name).launches
+           for name in ("digit_counts", "digit_pass", "digit_histogram", "digit_rank")
+           if hasattr(sort_radix_cuda, name)}
+    out["exclusive_scan_device_launches"] = scan.exclusive_scan.device_launches
+    return out
+
+
+def _sort_cases(rt, timer, iters: int, cold: dict) -> dict:
+    """The ``sort`` case: a pass and whole sorts in turns with ``impl="torch"``."""
+    from unitysimpleraytracing_tpu_torch.ops import sort, sort_radix_cuda
+
+    rng = np.random.default_rng(8)
+    inputs = {str(n): torch.from_numpy(rng.integers(0, 2**32, size=n, dtype=np.uint64)
+                                       .astype(np.int64)).cuda() for n in SORT_SIZES}
+    scene = rt.build_scene(rt.terrain_mesh(res=362, size=160.0, amplitude=20.0, seed=1))
+    inputs["morton_260642"] = scene.morton
+    out = {}
+    for label, keys in inputs.items():
+        values = torch.arange(keys.shape[0], dtype=torch.int32, device="cuda")
+        before = _sort_launches()
+        got = sort.sort_key_val(keys, values, impl="cuda")
+        torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in _sort_launches().items()}
+        want = sort.sort_key_val(keys, values, impl="torch")
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"the cuda sort differs from torch.sort at {label}")
+        out[label] = {
+            "keys": int(keys.shape[0]), "launches_of_one_sort": launches,
+            "digest": digest(*got),
+            "ms_cold_l2_in_turns": _in_turns(
+                timer, {"cuda": lambda: sort.sort_key_val(keys, values, impl="cuda"),
+                        "torch": lambda: sort.sort_key_val(keys, values, impl="torch")},
+                iters, **cold)}
+    keys = inputs[str(SORT_SIZES[0])]
+    values = torch.arange(keys.shape[0], dtype=torch.int32, device="cuda")
+    if hasattr(sort_radix_cuda, "digit_pass"):
+        # The kernels of one sort alone, where the checkout has them.
+        from unitysimpleraytracing_tpu_torch.ops import scan
+
+        counts = sort_radix_cuda.digit_counts(keys)
+        bases = scan.exclusive_scan(counts)
+        out["kernels_1048576_ms_cold_l2"] = {
+            name: timer.median_ms(fn, iters=iters, **cold) for name, fn in (
+                ("digit_counts", lambda: sort_radix_cuda.digit_counts(keys)),
+                ("exclusive_scan_of_counts", lambda: scan.exclusive_scan(counts)),
+                ("digit_pass", lambda: sort_radix_cuda.digit_pass(keys, values, bases, 0)),
+                ("digit_pass_shift_24", lambda: sort_radix_cuda.digit_pass(keys, values, bases,
+                                                                            24)))}
+    observed = sort_radix_cuda.cuda_pass_debug(keys, values, 0)
+    out["pass_1048576"] = {
+        "digest": digest(*observed),
+        "ms_cold_l2": timer.median_ms(lambda: sort_radix_cuda.cuda_pass_debug(keys, values, 0),
+                                      iters=iters, **cold)}
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(THIS_PKG),
@@ -286,6 +357,9 @@ def main(argv=None) -> dict:
             "device_launches_per_call": launches, "digest": digest(got),
             "ms_cold_l2_in_turns": turns,
             "bound_ms": 2 * 4 * size / profiling.PEAK_BYTES_PER_S * 1e3}
+
+    if "sort" in cases:
+        line["sort"] = _sort_cases(rt, timer, args.iters, cold)
 
     line["ptxas"] = {name: [ln.strip() for ln in kernel_build.build_log(name).splitlines()
                             if "registers" in ln or "spill" in ln or "stack frame" in ln]

@@ -70,26 +70,34 @@ def tiles_of(n: int) -> int:
 
 
 class ScanScratch:
-    """The look-back's scratch for one stream: a control word (epoch and
-    tickets drawn, kept by the kernel) and three 64-bit words per tile (a
-    status word per tile; for int64 also an aggregate and a prefix slot).
+    """The look-back's scratch for one stream: ``head`` words that the kernel
+    keeps (for the scan, one control word: the epoch and the tickets drawn)
+    and ``words_per_tile`` 64-bit words per tile (for the scan, a status word
+    per tile and, for int64, an aggregate and a prefix slot).  The sort's
+    count and pass kernels use the same class with their own sizes
+    (`ops/sort_radix_cuda`).
 
     `reserve` zero-fills the words when they are first allocated, when a
-    call needs more tiles than they hold, and after `CALLS_PER_FILL` calls.
-    Words that a CUDA graph capture may have used are never freed: growth
-    moves them to ``kept``, where they live as long as this object."""
+    call needs more tiles than they hold, and before the calls' epochs
+    would pass `CALLS_PER_FILL`.  Words that a CUDA graph capture may have
+    used are never freed: growth moves them to ``kept``, where they live as
+    long as this object."""
 
-    def __init__(self, device):
+    def __init__(self, device, words_per_tile: int = 3, head: int = 1):
         self.device = torch.device(device)
+        self.words_per_tile = words_per_tile
+        self.head = head
         self.capacity = 0       # tiles the words hold
-        self.words = None       # int64 (1 + 3 * capacity,): control, then status
-        self.calls = 0          # calls since the words were zero-filled
+        self.words = None       # int64 (head + words_per_tile * capacity,)
+        self.calls = 0          # epochs used since the words were zero-filled
         self.captured = False   # a graph capture has used the current words
         self.kept = []          # earlier words a capture used: never freed
 
-    def reserve(self, tiles: int, capturing: bool = False):
-        """(words, capacity) for a call of ``tiles`` tiles; ``capturing``
-        says that the call is being captured into a CUDA graph."""
+    def reserve(self, tiles: int, capturing: bool = False, epochs: int = 1):
+        """(words, capacity) for a call of ``tiles`` tiles that moves the
+        control word on by ``epochs`` epochs (one per look-back launch);
+        ``capturing`` says that the call is being captured into a CUDA
+        graph."""
         if tiles < 1:
             raise ValueError(f"a scan call has at least one tile, got {tiles}")
         if tiles > self.capacity:
@@ -97,13 +105,13 @@ class ScanScratch:
                 self.kept.append(self.words)
                 self.captured = False
             self.capacity = max(tiles, 2 * self.capacity)
-            self.words = torch.zeros((1 + 3 * self.capacity,), dtype=torch.int64,
-                                     device=self.device)
+            self.words = torch.zeros((self.head + self.words_per_tile * self.capacity,),
+                                     dtype=torch.int64, device=self.device)
             self.calls = 0
-        elif self.calls == CALLS_PER_FILL:
+        elif self.calls + epochs > CALLS_PER_FILL:
             self.words.zero_()
             self.calls = 0
-        self.calls += 1
+        self.calls += epochs
         self.captured = self.captured or capturing
         return self.words, self.capacity
 
