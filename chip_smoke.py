@@ -29,7 +29,13 @@ the repo calls real (260,642 triangles at 1920x1056 with shadow rays;
 - large scenes: 4,193,408 triangles through ``build_bvh_chunked`` (26 chunks)
   and ``render_frame_chunked`` at 1920x1056 with shadows; at 1,048,352
   triangles one tree against chunks (the CLI's switch point), binary chunk
-  records, and a save → load → trace round trip of the chunked checkpoint.
+  records, and a save → load → trace round trip of the chunked checkpoint;
+- the multi-device layer (``benchmarks/dist_path.run``): the dp, all-gather,
+  ring and shuffle engines on a one-process NCCL group and on 8 spawned gloo
+  ranks sharing the card, over BASELINE config 5's 999,698 triangles at
+  4,096 and 1,048,576 rays, held to one trace of the whole scene; the
+  build/trace pipeline on two of those ranks over the 260,642-triangle
+  deforming mesh; ``multihost.initialize`` and the host mesh.
 
 It builds the hand-written kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, shows by launch counts
@@ -1735,6 +1741,13 @@ def main() -> int:
 
     # ---- 9b. large scenes: chunked build, trace and frames ------------------
     run_chunked_path(rt, timer, smi, tex, bg, W, H, out_dir)
+
+    # ---- 9c. the multi-device path: parallel/dist, multihost, pipeline_pp ----
+    from unitysimpleraytracing_tpu_torch.benchmarks import dist_path
+
+    t0 = time.perf_counter()
+    dist_fields = dist_path.run()
+    emit("dist_path", seconds=time.perf_counter() - t0, nvidia_smi=smi, **dist_fields)
 
     # ---- 10. kernels ------------------------------------------------------
     print(smi, flush=True)

@@ -802,3 +802,116 @@ def test_chunked_trace_on_the_card_equals_plain(card, record_format):
     a = pt.render_frame_chunked(scene, cbvh, cam, tex, bg, shadows=True)
     b = pt.render_frame_chunked(scene, cbvh, cam, tex, bg, impl=plain, shadows=True)
     assert torch.equal(a, b)
+
+
+# ---- the multi-device layer: K1 on every shard ------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(card):
+    """A one-process NCCL group, as ``make_mesh(1, 1)`` starts it."""
+    import torch.distributed as tdist
+    from unitysimpleraytracing_tpu_torch.parallel import dist
+
+    mesh = dist.make_mesh(1, 1)
+    assert tdist.get_backend() == "nccl"
+    yield mesh
+    tdist.destroy_process_group()
+
+
+def _dist_setup(card):
+    scene = pt.build_scene(pt.random_triangle_soup(3000, seed=7, bound=5.0, tri_size=1.0))
+    bvh = pt.build_bvh(scene, builder="karras")
+    o, d = _rays(4096, seed=3, bound=8.0, dev=card)
+    return scene, bvh, o, d, dispatch.trace_rays(scene, bvh, o, d, impl="cuda4")
+
+
+def _assert_exact_on_hits(got: dict, ref):
+    """t bit for bit; tri, u, v on hits (a miss carries shard-local
+    triangle 0): `benchmarks/dist_path.hold`, as chip_smoke.py holds them."""
+    from unitysimpleraytracing_tpu_torch.benchmarks.dist_path import hold
+
+    hold({f: got[f].cpu().numpy() for f in ("t", "tri", "u", "v")}, ref)
+
+
+def _engine(dist, name, scene, bvh, mesh):
+    """An engine as a function of the rays, returning its fields by name."""
+    if name == "dp":
+        def run(o, d):
+            h = dist.render_hits_dp(scene, bvh, o, d, mesh)
+            return {"t": h.t, "tri": h.tri, "u": h.u, "v": h.v}
+
+        return run
+    ss = dist.partition_scene(scene, 1)
+    fn = getattr(dist, f"render_hits_{name}")
+    return lambda o, d: dict(zip(("t", "tri", "u", "v", "uv", "normal"), fn(ss, o, d, mesh)))
+
+
+_HOST_READS = {"dp": 0, "sharded": 1, "ring": 1, "shuffle": 2}
+
+
+@pytest.mark.parametrize("name", sorted(_HOST_READS))
+def test_dist_engines_at_world_size_one_on_nccl(card, nccl_mesh, name):
+    """Each engine on a one-process NCCL group against trace_rays(impl=
+    "cuda4") of the whole scene: one K1 launch, results on the card, the
+    host reads the engine counts."""
+    from unitysimpleraytracing_tpu_torch.parallel import dist
+
+    scene, bvh, o, d, ref = _dist_setup(card)
+    run = _engine(dist, name, scene, bvh, nccl_mesh)
+    before = trace_bvh4.traverse_bvh4.launches
+    nccl_mesh.host_reads = 0
+    got = run(o, d)
+    torch.cuda.synchronize()
+    assert trace_bvh4.traverse_bvh4.launches == before + 1
+    assert nccl_mesh.host_reads == _HOST_READS[name]
+    assert all(x.device == nccl_mesh.device for x in got.values())
+    _assert_exact_on_hits(got, ref)
+
+
+@pytest.mark.parametrize("name", ["sharded", "ring", "shuffle"])
+def test_nccl_engines_read_nothing_else_to_the_host(card, nccl_mesh, name):
+    """No ray or payload leaves the card on the NCCL path: an engine call
+    synchronises with the host no more often than its shard's own build and
+    trace do, plus the host reads the engine counts (the shard's count, and
+    the shuffle's sizes matrix)."""
+    from unitysimpleraytracing_tpu_torch.benchmarks.dist_path import synchronising_calls
+    from unitysimpleraytracing_tpu_torch.parallel import dist
+
+    scene, bvh, o, d, _ref = _dist_setup(card)
+    ss = dist.partition_scene(scene, 1)
+    fields = dist._shard_fields(ss, 0)
+    count = int(ss.counts[0])
+
+    def shard_alone():
+        scene_l = dist._shard_scene_view(fields, ss.shard_capacity)
+        tree = dist._local_build(fields[11], fields[9], fields[10], count)
+        dispatch.trace_rays(scene_l, tree, o, d)
+
+    run = _engine(dist, name, scene, bvh, nccl_mesh)
+    run(o, d)  # warm
+    base = synchronising_calls(shard_alone)
+    nccl_mesh.host_reads = 0
+    calls = synchronising_calls(lambda: run(o, d))
+    assert nccl_mesh.host_reads == _HOST_READS[name]
+    assert calls <= base + _HOST_READS[name], (calls, base)
+
+
+def test_ring_and_shuffle_on_two_gloo_ranks_on_one_card(card, tmp_path):
+    """Two processes of one gloo group, every tensor on cuda:0 (NCCL refuses
+    two ranks on one GPU): the ring and the shuffle at (1, 2) against
+    trace_rays(impl="cuda4") of the whole scene; K1 on every shard (the ring
+    traces twice a rank, the shuffle once)."""
+    from _torch_dist_worker import assemble, rays, run_ranks
+
+    trace_bvh4._load_kernel()  # built once, before the ranks start
+    ranks = run_ranks("gpu_pair", 2, str(tmp_path))
+    scene = pt.build_scene(pt.random_triangle_soup(300, seed=3, bound=5.0, tri_size=1.0))
+    o, d = (x.to(card) for x in rays(512, seed=3))
+    ref = dispatch.trace_rays(scene, pt.build_bvh(scene, builder="karras"), o, d, impl="cuda4")
+    for name, launches, reads in (("ring", 2, 1), ("shuffle", 1, 2)):
+        got = {k: torch.from_numpy(v) for k, v in assemble(ranks, name).items()}
+        _assert_exact_on_hits(got, ref)
+        for r in ranks:
+            assert int(r[f"{name}_counts|k1_launches"]) == launches
+            assert int(r[f"{name}_counts|host_reads"]) == reads
