@@ -35,7 +35,14 @@ the repo calls real (260,642 triangles at 1920x1056 with shadow rays;
   ranks sharing the card, over BASELINE config 5's 999,698 triangles at
   4,096 and 1,048,576 rays, held to one trace of the whole scene; the
   build/trace pipeline on two of those ranks over the 260,642-triangle
-  deforming mesh; ``multihost.initialize`` and the host mesh.
+  deforming mesh; ``multihost.initialize`` and the host mesh;
+- the host-side modules (``aux_path``): ``utils/resilience.device_healthcheck``,
+  ``utils/debug.probe_kernel`` around K1, the C++ OBJ parser of ``native/``
+  against the Python one on the 65,522-triangle terrain written as an OBJ,
+  and the CLI's ``--gizmo --gizmo-tris`` render of that OBJ against
+  ``utils/visualize.draw_aabbs`` over its plain frame;
+- the bench entry point (``benchmarks/bench.py``, ``bench.py``'s rows in its
+  schema) once, in its own process, its JSON line checked (``bench``).
 
 It builds the hand-written kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, shows by launch counts
@@ -1385,6 +1392,176 @@ def run_sah_path(rt, timer, smi, tex, bg, W, H, profile):
     return launches
 
 
+def write_obj(path: str, mesh) -> None:
+    """A MeshData as an OBJ: three ``v``/``vt``/``vn`` rows a triangle, each
+    float32 written as the shortest decimal of its float64 value, so any
+    parser reads back the same float32 bits."""
+    def rows(tag, arr):
+        return "\n".join(f"{tag} " + " ".join(repr(float(x)) for x in r)
+                         for r in arr.reshape(-1, arr.shape[-1]))
+
+    n = mesh.num_triangles
+    faces = "\n".join(f"f {3*t+1}/{3*t+1}/{3*t+1} {3*t+2}/{3*t+2}/{3*t+2} "
+                      f"{3*t+3}/{3*t+3}/{3*t+3}" for t in range(n))
+    with open(path, "w") as f:
+        f.write("\n".join([rows("v", mesh.positions), rows("vt", mesh.uvs),
+                           rows("vn", mesh.normals), faces, ""]))
+
+
+def run_aux_path(rt, smi, out_dir) -> float:
+    """The host-side modules of the port on the card: ``device_healthcheck``;
+    ``probe_kernel`` around a K1 ``render_hits`` at config 2 (bit for bit
+    against ``.cpu()`` of the same call); the config-2 terrain written as an
+    OBJ and read by the C++ parser (``load_obj(backend="native")``) and the
+    Python one, bit for bit; the CLI's ``--gizmo --gizmo-tris --shadows``
+    render of that OBJ at 512x512 on the card against ``draw_aabbs`` applied
+    here to the CLI's frame without gizmos, pixel for pixel.  Emits
+    ``aux_path`` and returns config 2's hit share (the bench's ``hit_frac``)."""
+    from unitysimpleraytracing_tpu_torch import cli, native
+    from unitysimpleraytracing_tpu_torch.io.png import read_png
+    from unitysimpleraytracing_tpu_torch.ops import trace_bvh4
+    from unitysimpleraytracing_tpu_torch.utils import debug, resilience, visualize
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    healthy = resilience.device_healthcheck(device="cuda")
+    health_s = time.perf_counter() - t0
+    assert healthy is True, "device_healthcheck on the card is not True"
+
+    # probe_kernel around K1 at config 2 (the default tree).
+    scene = rt.build_scene(rt.terrain_mesh(res=182, size=80.0, amplitude=9.0, seed=0))
+    bvh = rt.build_bvh(scene)
+    cam = rt.make_camera(eye=(55.0, 45.0, 70.0), target=(0.0, 0.0, 0.0),
+                         width=512, height=512)
+    before = trace_bvh4.traverse_bvh4.launches
+    got = debug.probe_kernel(rt.render_hits, scene, bvh, cam)
+    assert trace_bvh4.traverse_bvh4.launches - before == 1, "probe did not launch K1 once"
+    want = rt.render_hits(scene, bvh, cam)
+    for f in ("t", "tri", "u", "v"):
+        g, w = getattr(got, f), getattr(want, f).cpu().numpy()
+        assert isinstance(g, np.ndarray) and g.dtype == w.dtype and g.tobytes() == w.tobytes(), \
+            f"probe_kernel: {f} differs from .cpu() of the same call"
+    hit_frac = float(want.hit.float().mean())
+    del scene, bvh, got, want
+
+    # The native OBJ parser against the Python one on the config-2 terrain.
+    mesh = rt.terrain_mesh(res=182, size=80.0, amplitude=9.0, seed=0)
+    obj = os.path.join(HERE, "build", "chip_smoke_terrain_65k.obj")
+    os.makedirs(os.path.dirname(obj), exist_ok=True)
+    write_obj(obj, mesh)
+    t0 = time.perf_counter()
+    built = native.available()
+    build_s = time.perf_counter() - t0
+    assert built, f"native library did not build: {native.build_error()}"
+    t0 = time.perf_counter()
+    m_native = rt.load_obj(obj, backend="native")
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_python = rt.load_obj(obj, backend="python")
+    python_s = time.perf_counter() - t0
+    for f in ("positions", "uvs", "normals"):
+        a, b = getattr(m_native, f), getattr(m_python, f)
+        assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(), \
+            f"native vs python loader: {f}"
+    assert m_native.positions.tobytes() == mesh.positions.tobytes(), "OBJ round trip"
+
+    # The CLI's gizmo overlay against draw_aabbs over its plain frame.
+    W = H = 512
+    plain_png = os.path.join(out_dir, "aux_cli_plain_512.png")
+    gizmo_png = os.path.join(out_dir, "aux_cli_gizmo_512.png")
+    common = ["--shadows", "--width", str(W), "--height", str(H)]
+    before = trace_bvh4.traverse_bvh4.launches
+    t0 = time.perf_counter()
+    cli.main([obj, gizmo_png, "--gizmo", "--gizmo-tris", *common])
+    cli_s = time.perf_counter() - t0
+    cli.main([obj, plain_png, *common])
+    cli_launches = trace_bvh4.traverse_bvh4.launches - before
+    assert cli_launches == 4, f"two CLI frames with shadows launched K1 {cli_launches} times"
+    # The CLI's scene, tree and camera, built again the way it builds them.
+    lmesh = rt.load_obj(obj)
+    lscene = rt.build_scene(lmesh)
+    lbvh = rt.build_bvh(lscene)
+    lo, hi = lmesh.positions.min(axis=(0, 1)), lmesh.positions.max(axis=(0, 1))
+    center = (lo + hi) / 2
+    eye = center + np.array([0.8, 0.6, 1.2]) * float(np.linalg.norm(hi - lo))
+    lcam = rt.make_camera(eye=eye, target=center, width=W, height=H)
+    frame = read_png(plain_png)[::-1].astype(np.float32) / 255.0
+    over = visualize.draw_aabbs(frame, lcam, lscene.aabb_min[:lscene.count],
+                                lscene.aabb_max[:lscene.count], color=(1.0, 1.0, 1.0))
+    over = visualize.draw_aabbs(over, lcam, lbvh.node_aabb_min[:lbvh.num_internal],
+                                lbvh.node_aabb_max[:lbvh.num_internal], color=(1.0, 0.0, 0.0))
+    want_png = (np.clip(over[::-1], 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    got_png = read_png(gizmo_png)
+    assert got_png.shape == want_png.shape == (H, W, 4)
+    differ = int(np.count_nonzero((got_png != want_png).any(axis=-1)))
+    assert differ == 0, f"CLI gizmo PNG differs from the overlay of its plain frame at {differ} px"
+    rgb = got_png[..., :3].reshape(-1, 3)
+    red = int(np.count_nonzero((rgb == (255, 0, 0)).all(axis=1)))
+    white = int(np.count_nonzero((rgb == (255, 255, 255)).all(axis=1)))
+    assert red > 0 and white > 0, (red, white)
+    emit("aux_path", seconds=time.perf_counter() - t_phase,
+         healthcheck={"healthy": healthy, "seconds": health_s},
+         probe_kernel={"k1_launches": 1, "bit_identical_to_cpu_copy": True,
+                       "hit_fraction_config2": hit_frac},
+         native={"library": os.path.relpath(native.library_path(), HERE),
+                 "compiler": native.compiler(),
+                 "build_seconds": build_s, "triangles": m_native.num_triangles,
+                 "native_load_s": native_s, "python_load_s": python_s,
+                 "bit_identical_to_python": True},
+         cli_gizmo={"png": gizmo_png, "k1_launches_two_frames": cli_launches,
+                    "pixels_differing_from_overlay": differ, "red_px": red, "white_px": white,
+                    "gizmo_run_seconds": cli_s},
+         nvidia_smi=smi)
+    return hit_frac
+
+
+def run_bench(smi, hit_frac: float) -> dict:
+    """The port's bench entry point once, in its own process, and its line
+    checked: every documented key present and no TPU-only one, ``vs_baseline``
+    null, every ms > 0, every bound fraction <= 1.05, no sort above the
+    card's byte ceiling, its kernels launched, and ``hit_frac`` equal to the
+    K1 frame's hit share at config 2 (``aux_path``).  Emits ``bench`` with
+    the line."""
+    from unitysimpleraytracing_tpu_torch.benchmarks import bench
+
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "unitysimpleraytracing_tpu_torch.benchmarks.bench"],
+        cwd=HERE, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"bench exited {res.returncode}:\n{res.stderr[-4000:]}")
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    extra = line["extra"]
+    assert line["metric"] == "traversal_mrays_per_s_per_chip" and line["unit"] == "Mrays/s"
+    assert line["vs_baseline"] is None
+    assert np.isfinite(line["value"]) and line["value"] > 0
+    missing = sorted(set(bench.EXTRA_KEYS) - set(extra))
+    assert not missing, f"bench keys missing: {missing}"
+    assert not set(bench.TPU_ONLY_KEYS) & set(extra)
+
+    def numbers(d, prefix=""):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                yield from numbers(v, f"{prefix}{k}.")
+            elif isinstance(v, (int, float)) and not isinstance(v, bool):
+                yield prefix + k, v
+
+    flat = dict(numbers(extra))
+    for k, v in flat.items():
+        assert np.isfinite(v), (k, v)
+        if "_ms" in k:  # lbvh_build_ms, bvh4_kernel_ms, sponza_class.frame_ms_min, ...
+            assert v > 0, (k, v)
+        if k.endswith("_fraction"):
+            assert v <= 1.05, (k, v)
+    for eng in bench.SORT_ENGINES:
+        assert 0 < extra[f"sort_gkeys_{eng}"] <= extra["sort_gkeys_ceiling"], eng
+    assert all(n > 0 for n in extra["kernel_launches"].values()), extra["kernel_launches"]
+    assert extra["hit_frac"] == hit_frac, (extra["hit_frac"], hit_frac)
+    emit("bench", seconds=seconds, nvidia_smi=smi, line=line)
+    return line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(HERE, "build", "chip_smoke"),
@@ -1748,6 +1925,10 @@ def main() -> int:
     t0 = time.perf_counter()
     dist_fields = dist_path.run()
     emit("dist_path", seconds=time.perf_counter() - t0, nvidia_smi=smi, **dist_fields)
+
+    # ---- 9d. the host-side modules, and the bench entry point ----------------
+    hit_frac_config2 = run_aux_path(rt, smi, out_dir)
+    run_bench(smi, hit_frac_config2)
 
     # ---- 10. kernels ------------------------------------------------------
     print(smi, flush=True)

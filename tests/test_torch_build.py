@@ -9,11 +9,11 @@ import unitysimpleraytracing_tpu_torch as pt
 from unitysimpleraytracing_tpu.ops import lbvh as jlbvh
 from unitysimpleraytracing_tpu.ops import sort as jsort
 from unitysimpleraytracing_tpu.ops import unique as junique
-from unitysimpleraytracing_tpu.utils import reference_impl
 from unitysimpleraytracing_tpu_torch.io import convert
 from unitysimpleraytracing_tpu_torch.ops import lbvh as plbvh
 from unitysimpleraytracing_tpu_torch.ops import sort as psort
 from unitysimpleraytracing_tpu_torch.ops import unique as punique
+from unitysimpleraytracing_tpu_torch.utils import reference_impl
 
 from _torch_common import (
     CPU, assert_fields_same_bits, assert_same_bits, both_built, both_scenes, n_,

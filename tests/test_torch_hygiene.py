@@ -209,7 +209,9 @@ def test_port_calls_no_library_stand_in_for_a_kernel():
 
 
 @pytest.mark.parametrize("module", ["ops.trace_packet", "ops.trace_bvh2", "ops.sah",
-                                    "utils.profiling", "benchmarks.kernel_probe"])
+                                    "utils.profiling", "benchmarks.kernel_probe",
+                                    "utils.visualize", "utils.debug", "utils.resilience",
+                                    "utils.reference_impl", "native", "benchmarks.bench"])
 def test_new_traversal_modules_import_no_jax(module):
     code = (
         "import sys, importlib\n"
@@ -449,3 +451,30 @@ def test_kernel_ab_measures_on_the_card_only(tmp_path):
     assert kernel_ab.digest(a, b) == kernel_ab.digest(a.clone(), b.clone())
     assert kernel_ab.digest(a, b) != kernel_ab.digest(b, a)
     assert kernel_ab.digest(b) != kernel_ab.digest(torch.tensor([0.5, 0.0]))
+
+
+# ---- the host-side modules and the native bridge ------------------------------------
+
+
+def test_native_sources_are_listed_for_the_build_and_build_stays_ignored():
+    from unitysimpleraytracing_tpu_torch import native
+
+    pkg = os.path.dirname(native.__file__)
+    cpp = sorted(n for n in os.listdir(pkg) if n.endswith(".cpp"))
+    assert cpp == sorted(native.SOURCES) == ["image.cpp", "ingest.cpp"]
+    text = {n: open(os.path.join(pkg, n), encoding="utf-8").read() for n in cpp}
+    assert "ObjMesh* obj_load(const char* path)" in text["ingest.cpp"]
+    assert "long png_unfilter(" in text["image.cpp"]
+    assert "-fPIC" in native.CXX_FLAGS and "-shared" in native.CXX_FLAGS
+    assert os.path.dirname(native.library_path()) == os.path.join(ROOT, "build")
+    ignored = [ln.strip() for ln in open(os.path.join(ROOT, ".gitignore"), encoding="utf-8")]
+    assert "build/" in ignored
+
+
+def test_no_not_ported_path_is_left_in_the_port():
+    pkg = os.path.join(ROOT, "unitysimpleraytracing_tpu_torch")
+    for d, _, names in os.walk(pkg):
+        for n in names:
+            if n.endswith(".py"):
+                text = open(os.path.join(d, n), encoding="utf-8").read()
+                assert "not ported" not in text and "NotImplementedError" not in text, n

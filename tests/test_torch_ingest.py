@@ -88,10 +88,14 @@ def test_load_obj_byte_identical(tmp_path, flip_x):
 
 
 def test_load_obj_native_backend_not_ported(tmp_path):
+    """The native backend, once unported, is now the port's C++ parser: the
+    same bytes as the Python parser (and the JAX package's); an unknown
+    backend still raises."""
     path = tmp_path / "mesh.obj"
     path.write_text(_OBJ)
-    with pytest.raises(NotImplementedError):
-        pt.load_obj(str(path), backend="native")
+    got = pt.load_obj(str(path), backend="native")
+    _assert_mesh_bytes(got, rt.load_obj(str(path), backend="python"))
+    _assert_mesh_bytes(got, pt.load_obj(str(path), backend="python"))
     with pytest.raises(ValueError):
         pt.load_obj(str(path), backend="bogus")
 

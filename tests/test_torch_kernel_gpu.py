@@ -915,3 +915,66 @@ def test_ring_and_shuffle_on_two_gloo_ranks_on_one_card(card, tmp_path):
         for r in ranks:
             assert int(r[f"{name}_counts|k1_launches"]) == launches
             assert int(r[f"{name}_counts|host_reads"]) == reads
+
+
+# ---- the host-side modules on the card ------------------------------------------
+
+
+def test_device_healthcheck_on_the_card(card):
+    from unitysimpleraytracing_tpu_torch.utils import resilience
+
+    assert resilience.device_healthcheck() is True
+    assert resilience.device_healthcheck(device="cuda") is True
+
+
+def test_probe_kernel_on_a_k1_call(card):
+    from unitysimpleraytracing_tpu_torch.utils import debug
+
+    scene = pt.build_scene(pt.terrain_mesh(res=64, size=20.0, amplitude=4.0, seed=0))
+    bvh = pt.build_bvh(scene)
+    table = trace_bvh4.prepare_tables4(scene, bvh)
+    o, d = _rays(4096, seed=5, bound=8.0, dev=card)
+    before = trace_bvh4.traverse_bvh4.launches
+    got = debug.probe_kernel(trace_bvh4.traverse_bvh4, table, o, d)
+    assert trace_bvh4.traverse_bvh4.launches == before + 1
+    want = trace_bvh4.traverse_bvh4(table, o, d)
+    for f in ("t", "tri", "u", "v"):
+        g = getattr(got, f)
+        assert isinstance(g, np.ndarray) and g.tobytes() == getattr(want, f).cpu().numpy().tobytes()
+    assert got.hit.any()
+
+
+def test_cli_gizmo_on_the_card_equals_the_cpu_render_s_overlay(card, tmp_path):
+    """The CLI's --gizmo --gizmo-tris render on the card and on the CPU: the
+    overlay pixels are equal, the rest within tests/test_golden.py::_compare."""
+    from unitysimpleraytracing_tpu_torch import cli
+    from unitysimpleraytracing_tpu_torch.io.png import read_png
+    from unitysimpleraytracing_tpu_torch.utils import visualize
+
+    mesh = pt.terrain_mesh(res=24, size=20.0, amplitude=4.0, seed=0)
+    obj = tmp_path / "t.obj"
+    lines = [f"v {x!r} {y!r} {z!r}" for x, y, z in mesh.positions.reshape(-1, 3).tolist()]
+    lines += [f"f {3*t+1} {3*t+2} {3*t+3}" for t in range(mesh.num_triangles)]
+    obj.write_text("\n".join(lines) + "\n")
+    W, H = 96, 64
+    args = ["--width", str(W), "--height", str(H), "--shadows", "--gizmo", "--gizmo-tris"]
+    cli.main([str(obj), str(tmp_path / "card.png"), *args])
+    cli.main([str(obj), str(tmp_path / "cpu.png"), *args, "--device", "cpu"])
+    got, want = read_png(str(tmp_path / "card.png")), read_png(str(tmp_path / "cpu.png"))
+    m = pt.load_obj(str(obj))
+    scene = pt.build_scene(m, device="cpu")
+    bvh = pt.build_bvh(scene)
+    lo, hi = m.positions.min(axis=(0, 1)), m.positions.max(axis=(0, 1))
+    center = (lo + hi) / 2
+    eye = center + np.array([0.8, 0.6, 1.2]) * float(np.linalg.norm(hi - lo))
+    cam = pt.make_camera(eye=eye, target=center, width=W, height=H, device="cpu")
+    over = np.zeros((H, W, 4), np.float32)
+    over = visualize.draw_aabbs(over, cam, scene.aabb_min[: scene.count],
+                                scene.aabb_max[: scene.count], color=(1.0, 1.0, 1.0))
+    over = visualize.draw_aabbs(over, cam, bvh.node_aabb_min[: bvh.num_internal],
+                                bvh.node_aabb_max[: bvh.num_internal], color=(1.0, 1.0, 1.0))
+    mask = over[::-1, :, 0] == 1.0
+    assert mask.sum() > 100
+    assert np.array_equal(got[mask], want[mask])
+    diff = np.abs(got[~mask].astype(np.int32) - want[~mask].astype(np.int32))
+    assert float((diff > 2).mean()) < 0.002

@@ -214,9 +214,17 @@ def test_cli_builder_choices_are_the_jax_cli_s(tmp_path, capsys):
     "flag", [["--gizmo", "--gizmo-index", "3"], ["--gizmo-tris", "--gizmo-index", "0"],
              ["--gizmo"], ["--gizmo-tris"]])
 def test_cli_unported_options_exit_with_message(tmp_path, capsys, flag):
+    """The flags that once exited with a "not ported yet" message now render:
+    the gizmo overlay (utils/visualize) changes the PNG and says nothing of
+    being unported."""
     obj = tmp_path / "pyramid.obj"
     obj.write_text(_OBJ)
-    with pytest.raises(SystemExit) as exc:
-        pcli.main([str(obj), str(tmp_path / "o.png"), "--device", "cpu", *flag])
-    assert exc.value.code != 0
-    assert "not ported yet" in capsys.readouterr().err
+    pcli.main([str(obj), str(tmp_path / "plain.png"), "--device", "cpu",
+               "--width", "64", "--height", "32"])
+    pcli.main([str(obj), str(tmp_path / "o.png"), "--device", "cpu",
+               "--width", "64", "--height", "32", *flag])
+    out = capsys.readouterr()
+    assert "not ported" not in out.out + out.err
+    img, plain = read_png(str(tmp_path / "o.png")), read_png(str(tmp_path / "plain.png"))
+    assert img.shape == plain.shape == (32, 64, 4)
+    assert not np.array_equal(img, plain)

@@ -19,6 +19,10 @@ point) is built in chunks of 163,840 triangles, one tree each
 `render_frames_chunked`; below it the scene is one tree.  ``--bvh-cache
 PATH.npz`` restores the built tree (or chunks) from PATH if it exists, else
 builds and saves it there (`io/checkpoint`, the same files as the JAX CLI's).
+``--gizmo`` / ``--gizmo-tris`` draw the tree's internal-node boxes (red) and
+the triangles' boxes (white) over each frame as wireframes on the host
+(`utils/visualize`; ``--gizmo-index`` picks one box); the frame itself is
+rendered on the device as without them.
 """
 from __future__ import annotations
 
@@ -58,12 +62,6 @@ def _resize_nearest(img, h: int, w: int):
     ys = (np.arange(h) * h0 // h).clip(0, h0 - 1)
     xs = (np.arange(w) * w0 // w).clip(0, w0 - 1)
     return img[ys[:, None], xs[None, :]]
-
-
-_NOT_PORTED = {
-    "gizmo": "--gizmo (utils/visualize)",
-    "gizmo_tris": "--gizmo-tris (utils/visualize)",
-}
 
 
 def main(argv=None) -> None:
@@ -123,14 +121,21 @@ def main(argv=None) -> None:
         "PATH if it exists, else build it and save it there (io/checkpoint; "
         "the same files as the JAX CLI's)",
     )
-    ap.add_argument("--gizmo", action="store_true", help="not ported yet")
-    ap.add_argument("--gizmo-tris", action="store_true", help="not ported yet")
-    ap.add_argument("--gizmo-index", type=int, default=-1, help="not ported yet")
+    ap.add_argument(
+        "--gizmo", action="store_true",
+        help="overlay BVH internal-node AABB wireframes in red "
+        "(RaytracingMeshDrawer.OnDrawGizmos:108-115; one tree only)",
+    )
+    ap.add_argument(
+        "--gizmo-tris", action="store_true",
+        help="overlay per-triangle AABB wireframes in white (:98-105)",
+    )
+    ap.add_argument(
+        "--gizmo-index", type=int, default=-1,
+        help="draw only this node/triangle index (the reference's "
+        "_indexToCheck inspector slider, RaytracingMeshDrawer.cs:11)",
+    )
     args = ap.parse_args(argv)
-
-    for attr, what in _NOT_PORTED.items():
-        if getattr(args, attr):
-            ap.error(f"{what} is not ported yet (see ROADMAP.md, queue 1)")
 
     import numpy as np
     import torch
@@ -159,6 +164,7 @@ def main(argv=None) -> None:
     chunked = mesh.num_triangles > CHUNKED_ABOVE
     cached = args.bvh_cache and os.path.exists(args.bvh_cache)
     t0 = time.perf_counter()
+    bvh = None  # one tree's BVH; a chunked scene has none (no --gizmo nodes)
     if chunked:
         if cached:
             cbvh = ckpt.load_chunked_checkpoint(args.bvh_cache, device=device)
@@ -227,6 +233,35 @@ def main(argv=None) -> None:
         sync()
         return frame
 
+    def overlay(frame, cam):
+        """Top-down image of a frame, with the --gizmo* wireframes drawn
+        over it on the host (utils/visualize)."""
+        if not (args.gizmo or args.gizmo_tris):
+            return rt.frame_to_image(frame)
+        from unitysimpleraytracing_tpu_torch.utils.visualize import draw_aabbs
+
+        over = frame
+        sel = (
+            slice(None)
+            if args.gizmo_index < 0
+            else slice(args.gizmo_index, args.gizmo_index + 1)
+        )
+        if args.gizmo_tris:  # per-triangle boxes, white
+            over = draw_aabbs(
+                over, cam,
+                scene.aabb_min[: scene.count][sel],
+                scene.aabb_max[: scene.count][sel],
+                color=(1.0, 1.0, 1.0),
+            )
+        if args.gizmo and bvh is not None:  # internal nodes, red
+            over = draw_aabbs(
+                over, cam,
+                bvh.node_aabb_min[: bvh.num_internal][sel],
+                bvh.node_aabb_max[: bvh.num_internal][sel],
+                color=(1.0, 0.0, 0.0),
+            )
+        return over[::-1]  # bottom-up frame → top-down image
+
     if args.orbit <= 0:
         cam = cam_at(eye)
         t0 = time.perf_counter()
@@ -238,7 +273,7 @@ def main(argv=None) -> None:
             f"({mrays:.2f} Mrays/s, first frame: includes the table pack "
             "and, on the card, the kernel build)"
         )
-        write_png(args.out, rt.frame_to_image(frame))
+        write_png(args.out, overlay(frame, cam))
         print(f"wrote {args.out}")
         return
 
@@ -280,8 +315,8 @@ def main(argv=None) -> None:
             times.append((time.perf_counter() - t0) / len(cams))
             # PNGs written (and frames pulled to host) per group, so device
             # memory holds at most one group of frames beside the table.
-            for frame in batch:
-                write_png(f"{stem}_{idx:03d}.{ext or 'png'}", rt.frame_to_image(frame))
+            for frame, cam in zip(batch, cams):
+                write_png(f"{stem}_{idx:03d}.{ext or 'png'}", overlay(frame, cam))
                 idx += 1
         if len(times) == 1:
             print("orbit-batch: single group — steady ms/frame below includes "
@@ -293,7 +328,7 @@ def main(argv=None) -> None:
             t0 = time.perf_counter()
             frame = do_frame(cam)
             times.append(time.perf_counter() - t0)
-            write_png(f"{stem}_{i:03d}.{ext or 'png'}", rt.frame_to_image(frame))
+            write_png(f"{stem}_{i:03d}.{ext or 'png'}", overlay(frame, cam))
     steady = float(np.median(times[1:])) if len(times) > 1 else times[0]
     print(
         f"orbit {args.orbit} frames {args.width}x{args.height}: "

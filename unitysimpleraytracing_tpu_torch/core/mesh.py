@@ -41,16 +41,20 @@ def load_obj(path: str, flip_x: bool = False, backend: str = "auto") -> MeshData
     ``flip_x=True`` reproduces Unity's right-handed→left-handed OBJ import
     (negated x + reversed winding) for scene-parity runs.
 
-    ``backend``: "python" or "auto" use the pure-Python parser; "native"
-    (the C++ parser of the JAX package) is not ported yet and raises.
+    ``backend``: "native" (the C++ parser, unitysimpleraytracing_tpu_torch/
+    native; raises when it cannot be built), "python", or "auto" (native
+    when buildable, else python). Both parsers produce identical arrays.
     """
     if backend not in ("auto", "native", "python"):
         raise ValueError(f"unknown load_obj backend {backend!r}")
-    if backend == "native":
-        raise NotImplementedError(
-            "load_obj(backend='native'): the C++ OBJ/PNG bridge is not ported "
-            "yet (ROADMAP queue 1, leftovers)"
-        )
+    if backend != "python":
+        from unitysimpleraytracing_tpu_torch import native
+
+        if native.available():
+            pos, uv, nrm, has_nrm = native.load_obj_native(path)
+            return _finalize_mesh(pos, uv, nrm, has_nrm, flip_x)
+        if backend == "native":
+            raise RuntimeError(native.build_error() or "native loader unavailable")
     return _load_obj_python(path, flip_x)
 
 

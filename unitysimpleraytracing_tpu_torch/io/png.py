@@ -2,7 +2,8 @@
 
 The reference leans on Unity's asset importer for ``viking_room.png``
 (Scene.unity:366) and never writes images; this framework needs both ends for
-the headless CLI and golden-image tests.  Pure stdlib (zlib/struct) so the
+the headless CLI and golden-image tests.  Stdlib (zlib/struct) with the
+native C++ scanline unfilter (``native/image.cpp``) when it builds, so the
 framework has no image-library dependency.
 """
 from __future__ import annotations
@@ -18,9 +19,19 @@ _SIG = b"\x89PNG\r\n\x1a\n"
 def read_png(path: str) -> np.ndarray:
     """Decode a PNG to (H, W, C) uint8.
 
-    Uses Pillow when present (fast C unfiltering); otherwise falls back to the
-    pure-stdlib decoder below (bit depth 8, color types 0/2/3/4/6, no
-    interlace)."""
+    An 8-bit, non-interlaced PNG (the textures the framework reads) is
+    decoded by the stdlib decoder below with the C++ scanline unfilter
+    (native/image.cpp) when that library builds, as the JAX package's decoder
+    does.  Any other file, or no compiler, goes to Pillow when present, else
+    to the pure-Python decoder (bit depth 8, color types 0/2/3/4/6, no
+    interlace).  The three give the same array."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if _native_decodable(data):
+        from unitysimpleraytracing_tpu_torch import native
+
+        if native.available():
+            return _decode(data, path, native.png_unfilter_native)
     try:
         from PIL import Image
 
@@ -30,11 +41,25 @@ def read_png(path: str) -> np.ndarray:
         return img
     except ImportError:
         pass
-    return _read_png_pure(path)
+    return _decode(data, path, _unfilter_python)
+
+
+def _native_decodable(data: bytes) -> bool:
+    """PNG signature, then IHDR (always the first chunk) with bit depth 8,
+    a colour type the decoder knows, and no interlace."""
+    if data[:8] != _SIG or data[12:16] != b"IHDR" or len(data) < 29:
+        return False
+    return data[24] == 8 and data[25] in (0, 2, 3, 4, 6) and data[28] == 0
 
 
 def _read_png_pure(path: str) -> np.ndarray:
-    data = open(path, "rb").read()
+    with open(path, "rb") as f:
+        return _decode(f.read(), path, _unfilter_python)
+
+
+def _decode(data: bytes, path: str, unfilter) -> np.ndarray:
+    """Chunks → header, palette and the inflated scanlines; ``unfilter``
+    (the Python loops or the native fast path) undoes the row filters."""
     if data[:8] != _SIG:
         raise ValueError(f"{path}: not a PNG")
     pos = 8
@@ -63,8 +88,17 @@ def _read_png_pure(path: str) -> np.ndarray:
             break
     channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color_type]
     raw = zlib.decompress(idat)
-    stride = w * channels
+    img = unfilter(raw, h, w * channels, channels).reshape(h, w, channels)
+    if color_type == 3:
+        if palette is None:
+            raise ValueError("palette PNG missing PLTE")
+        img = palette[img[:, :, 0]]
+    return img
 
+
+def _unfilter_python(raw: bytes, h: int, stride: int, channels: int) -> np.ndarray:
+    """The per-byte None/Sub/Up/Average/Paeth loops (PNG spec §6) over h
+    rows of 1 filter byte + ``stride`` data bytes; returns (h, stride)."""
     out = np.zeros((h, stride), np.uint8)
     prev = np.zeros(stride, np.int32)
     off = 0
@@ -99,12 +133,7 @@ def _read_png_pure(path: str) -> np.ndarray:
             raise ValueError(f"bad filter {ftype}")
         out[row] = cur.astype(np.uint8)
         prev = cur
-    img = out.reshape(h, w, channels)
-    if color_type == 3:
-        if palette is None:
-            raise ValueError("palette PNG missing PLTE")
-        img = palette[img[:, :, 0]]
-    return img
+    return out
 
 
 def write_png(path: str, img: np.ndarray) -> None:
