@@ -42,7 +42,11 @@ the repo calls real (260,642 triangles at 1920x1056 with shadow rays;
   and the CLI's ``--gizmo --gizmo-tris`` render of that OBJ against
   ``utils/visualize.draw_aabbs`` over its plain frame;
 - the bench entry point (``benchmarks/bench.py``, ``bench.py``'s rows in its
-  schema) once, in its own process, its JSON line checked (``bench``).
+  schema) once, in its own process, its JSON line checked (``bench``);
+- the traversal kernels K1, K2 and K1c at config 2 (65,522 triangles,
+  512x512, the default tree) through ``render_hits`` and ``trace_rays``,
+  held to the JAX package's committed answer under the crack rule
+  (``parity_scale``).
 
 It builds the hand-written kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, shows by launch counts
@@ -1392,6 +1396,99 @@ def run_sah_path(rt, timer, smi, tex, bg, W, H, profile):
     return launches
 
 
+def run_parity_scale(rt, smi) -> None:
+    """The card's three traversal kernels held to the JAX package's answer at
+    config 2 (``bench.py:118-124``: 65,522 triangles, the default tree,
+    512x512), stored as ``tests/golden/torch_config2_hits_jax.npz`` (hit mask
+    and ids; the CPU suite holds that file to the JAX package bit for bit).
+    K1 and K2 through ``render_hits(impl="cuda4")`` and ``"cuda2"``, K1c
+    through ``trace_rays(..., tables=compress_tables4(...))`` on the same
+    rays, each driven with its count set to 0 just before and read just
+    after.  Each answer must meet ``assert_hit_parity_at_scale``, the crack
+    rule (t, u, v of the reference are float64 of JAX's triangle on the
+    card's ray: the file stores no t), with exactly the divergent ray the
+    CPU suite finds (108,203, where float64 sides with the port); and each
+    must equal its plain version on the same tree and rays (``plain4``; K1c
+    on its compressed table; ``plain2`` for K2) bit for bit where tri agrees,
+    tri differing only at exact-t ties.  Emits ``parity_scale``: per kernel
+    the divergent rays, the side float64 agrees with on each, the largest
+    edge distance; and how many of the card's ray directions differ bitwise
+    from ``generate_rays`` on the CPU."""
+    from unitysimpleraytracing_tpu_torch.core.camera import generate_rays
+    from unitysimpleraytracing_tpu_torch.ops import dispatch, trace_bvh2, trace_bvh4
+    from unitysimpleraytracing_tpu_torch.utils import parity
+
+    t_phase = time.perf_counter()
+    K1, K2 = trace_bvh4.traverse_bvh4, trace_bvh2.traverse_bvh2
+    W = H = 512
+    cam_kw = dict(eye=(55.0, 45.0, 70.0), target=(0.0, 0.0, 0.0), width=W, height=H,
+                  fov_deg=60.0)
+    scene = rt.build_scene(rt.terrain_mesh(res=182, size=80.0, amplitude=9.0, seed=0))
+    bvh = rt.build_bvh(scene)
+    cam = rt.make_camera(**cam_kw)
+    o, d = generate_rays(cam)
+    o_cpu, d_cpu = generate_rays(rt.make_camera(**cam_kw, device="cpu"))
+    compressed = trace_bvh4.compress_tables4(trace_bvh4.prepare_tables4(scene, bvh))
+    o_tile, d_tile = (dispatch._tile_major(x, H, W, 32).contiguous() for x in (o, d))
+    torch.cuda.synchronize()
+
+    K1.launches = K2.launches = K1.compressed_launches = 0
+    answers = {
+        "trace_bvh4": rt.render_hits(scene, bvh, cam, impl="cuda4"),
+        "trace_bvh2": rt.render_hits(scene, bvh, cam, impl="cuda2"),
+        "trace_bvh4_compressed": dispatch.trace_rays(scene, bvh, o_tile, d_tile,
+                                                     tables=compressed),
+    }
+    torch.cuda.synchronize()
+    launches = {"trace_bvh4": K1.launches, "trace_bvh2": K2.launches,
+                "trace_bvh4_compressed": K1.compressed_launches}
+    assert launches == dict.fromkeys(answers, 1), f"parity_scale launches: {launches}"
+    plain = {
+        "trace_bvh4": rt.render_hits(scene, bvh, cam, impl="plain4"),
+        "trace_bvh2": rt.render_hits(scene, bvh, cam, impl="plain2"),
+        "trace_bvh4_compressed": dispatch.trace_rays(scene, bvh, o_tile, d_tile,
+                                                     impl="plain4", tables=compressed),
+    }
+
+    def row_major(h):
+        return SimpleNamespace(
+            **{f: dispatch._row_major(getattr(h, f), H, W, 32) for f in ("t", "tri", "u", "v")})
+
+    for k in (answers, plain):
+        k["trace_bvh4_compressed"] = row_major(k["trace_bvh4_compressed"])
+
+    on, dn = o.cpu().numpy(), d.cpu().numpy()
+    tris = scene.triangles
+    a, b, c = (x[:scene.count].cpu().numpy() for x in (tris.a, tris.b, tris.c))
+    mask, tri = parity.load_hit_fixture(os.path.join(GOLDEN_DIR, "torch_config2_hits_jax.npz"))
+    ref = parity.hits_from_ids(mask, tri, a, b, c, on, dn)
+    kernels = {}
+    for name, hits in answers.items():
+        got = np_hits(hits)
+        vs_plain = parity.assert_hit_parity(got, np_hits(plain[name]), exact=True)
+        st = parity.assert_hit_parity_at_scale(got, ref, a, b, c, on, dn)
+        assert st["divergent"] == [108203] and st["agrees"] == ["got"], (
+            f"{name}: divergent rays {st['divergent']}, float64 with {st['agrees']}; "
+            f"the CPU suite finds [108203], with the port")
+        kernels[name] = {"launches": launches[name], "hit_rays": int((got.t != MAX_FLOAT).sum()),
+                         "tri_ties_vs_plain": vs_plain["tri_ties"], **st}
+    emit("parity_scale", triangles=scene.count, width=W, height=H, tree="default (sah_free)",
+         reference="tests/golden/torch_config2_hits_jax.npz (JAX render_hits on the CPU)",
+         reference_hits=int(mask.sum()),
+         rule="assert_hit_parity_at_scale: a ray may diverge only where float64 hits it "
+              f"within max(EDGE_EPS={parity.EDGE_EPS}, 4 float32 eps x uv_condition) of an "
+              "edge another triangle shares and one side agrees with float64 (in id, or "
+              "across that edge at its t); every other ray under assert_hit_parity (t "
+              "relative 4e-6, x grazing_factor where both hit one triangle; u, v within "
+              "4 float32 eps x uv_condition); divergent must be [108203] with float64 "
+              "on the card's side; each kernel equal to its plain version (plain4, K1c's "
+              "on its table, plain2) bit for bit where tri agrees, tri only at exact-t ties",
+         kernels=kernels,
+         dirs_differing_bitwise_from_cpu=int((d.cpu() != d_cpu).any(dim=1).sum()),
+         origins_differing_bitwise_from_cpu=int((o.cpu() != o_cpu).any(dim=1).sum()),
+         rays=W * H, seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+
+
 def write_obj(path: str, mesh) -> None:
     """A MeshData as an OBJ: three ``v``/``vt``/``vn`` rows a triangle, each
     float32 written as the shortest decimal of its float64 value, so any
@@ -1656,6 +1753,9 @@ def main() -> int:
     emit("kernel2_vs_plain", tolerance=tolerance, cases=cases,
          cuda2_vs_cuda4_case_a=st24, nvidia_smi=smi)
     del first2, first4, g2, g4
+
+    # ---- 3b. parity_scale: K1, K2, K1c against the JAX package at config 2
+    run_parity_scale(rt, smi)
 
     # The shared-stack packet engine against the per-ray oracle: a 64x64
     # frame of the same scene, 4 packets of 1024 rays in lockstep.  A host

@@ -7,8 +7,16 @@ Used by the port's tests (JAX package vs port) and by ``chip_smoke.py``
 The contract (README "Parity contract"): identical hit masks; hit triangle
 ids identical except at exact-t ties; t bounded relatively; build arrays bit
 for bit; frames within ±2/255 on all but 0.2 % of pixels.
+
+At the sizes people render, the contract needs one more rule (the crack rule,
+`assert_hit_parity_at_scale`): float32 Möller–Trumbore is not watertight, so
+two substrates that round differently let different rays through the crack
+along an edge two triangles share.  Such a ray may differ, and only such a
+ray: float64 decides what it should hit.
 """
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -16,6 +24,15 @@ MAX_FLOAT = np.float32(3.4028234663852886e38)
 # Relative bound on t between two traversal substrates, and the definition of
 # an "exact-t tie" for triangle-id flips on shared edges.
 _TIE_RTOL = 4e-6
+# The crack rule's bounds.  Per ray, float64's hit must lie within
+# max(EDGE_EPS, UV_ATOL_AT_SCALE x `uv_condition`) (barycentric) of a shared
+# edge for two float32 answers to differ on it.  The mask cracks seen lie
+# 1.6e-6 to 3.8e-5 from one (config 2: 4.73e-6); rays seen from far or at a
+# graze get float32's error in u, v, about eps x `uv_condition`.
+EDGE_EPS = 1e-4
+# u, v bound at the bench's sizes, times `uv_condition`: 4 float32 eps (the
+# sides differ by up to 1.66 of it at config 2, each side and float64 by 1.12).
+UV_ATOL_AT_SCALE = 4 * float(np.finfo(np.float32).eps)
 
 
 def _hit_fields(h):
@@ -36,6 +53,25 @@ def grazing_factor(a, b, c, dirs, tri, det_floor: float = 0.1) -> np.ndarray:
     e1, e2 = b[tri] - a[tri], c[tri] - a[tri]
     det = np.einsum("ij,ij->i", e1.astype(np.float64), np.cross(dirs, e2).astype(np.float64))
     return np.maximum(1.0, det_floor / np.maximum(np.abs(det), 1e-30))
+
+
+def uv_condition(a, b, c, o, d, tri) -> np.ndarray:
+    """Per-ray float32 conditioning of u and v of triangle ``tri[r]`` on ray
+    ``r`` (``o``, ``d``: the rays): ``|o−a|·max(|e1|, |e2|) / |det|``.
+
+    u and v are quotients by det of dot products as large as ``|o−a|·|e|``,
+    so a rounding of either substrate, or an ulp of difference between their
+    rays, moves them by about float32's eps times this.  `grazing_factor`
+    keeps only the ``1/|det|``; that serves scenes seen from close by, not a
+    camera 100 units from triangles 0.4 across, where this factor runs from
+    about 200 to 1e5 (config 2)."""
+    tri = np.asarray(tri)
+    a, b, c = (np.asarray(x)[tri].astype(np.float64) for x in (a, b, c))
+    o, d = (np.asarray(x).astype(np.float64) for x in (o, d))
+    e1, e2 = b - a, c - a
+    det = np.einsum("ij,ij->i", e1, np.cross(d, e2))
+    edge = np.maximum(np.linalg.norm(e1, axis=1), np.linalg.norm(e2, axis=1))
+    return np.linalg.norm(o - a, axis=1) * edge / np.maximum(np.abs(det), 1e-30)
 
 
 def assert_hit_parity(got, ref, uv_atol: float | None = None, exact: bool = False,
@@ -84,6 +120,225 @@ def assert_hit_parity(got, ref, uv_atol: float | None = None, exact: bool = Fals
                 f"(max diff {np.abs(g[same] - r[same]).max()})"
             )
     return stats
+
+
+def _mt64(a, b, c, o, d):
+    """Float64 Möller–Trumbore as Raytracing.compute:37-73 orders it, no
+    acceptance test: (det, t, u, v), broadcast over the leading axes."""
+    e1, e2 = b - a, c - a
+    pvec = np.cross(d, e2)
+    det = np.sum(e1 * pvec, axis=-1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        inv_det = 1.0 / det
+        tvec = o - a
+        u = np.sum(tvec * pvec, axis=-1) * inv_det
+        qvec = np.cross(tvec, e1)
+        v = np.sum(d * qvec, axis=-1) * inv_det
+        t = np.sum(e2 * qvec, axis=-1) * inv_det
+    return det, t, u, v
+
+
+def _f64_rows(a, b, c, o, d, rows):
+    """`f64_nearest` one row at a time, lazily: yields (tri, t, u, v,
+    edge_distance, edge) per row, tri −1 on a miss."""
+    verts = [np.asarray(x) for x in (a, b, c)]
+    a64, b64, c64 = (x.astype(np.float64) for x in verts)
+    o, d = np.asarray(o), np.asarray(d)
+    # u = 0 lies on edge a–c, v = 0 on a–b, 1 − u − v = 0 on b–c.
+    edges = ((0, 2), (0, 1), (1, 2))
+    for r in np.asarray(rows, np.int64).reshape(-1):
+        det, t, u, v = _mt64(a64, b64, c64, o[r].astype(np.float64), d[r].astype(np.float64))
+        ok = ~((det > -1e-8) & (det < 1e-8)) & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 0)
+        if not ok.any():
+            yield -1, np.inf, np.nan, np.nan, np.inf, np.zeros((2, 3), verts[0].dtype)
+            continue
+        cand = np.flatnonzero(ok)
+        j = int(cand[np.argmin(t[cand])])  # first of equal minima: strict < by id
+        bary = (u[j], v[j], 1.0 - u[j] - v[j])
+        e = int(np.argmin(bary))
+        yield j, t[j], u[j], v[j], bary[e], np.stack(
+            (verts[edges[e][0]][j], verts[edges[e][1]][j]))
+
+
+def f64_nearest(a, b, c, o, d, rows) -> dict:
+    """Float64 nearest hit of rays ``o[r]``, ``d[r]`` for each ``r`` in
+    ``rows``, over every triangle of ``a``, ``b``, ``c`` ((N, 3) each: the
+    real triangles only).  Geometry, not traversal: no box pre-test.  The
+    reference's acceptance: reject ``det`` in (−1e-8, 1e-8); accept
+    ``u ≥ 0``, ``v ≥ 0``, ``u + v ≤ 1``, ``t > 0``; nearest by strict ``<``
+    in triangle-id order.
+
+    Returns arrays over ``rows``: ``tri`` (−1 on a miss), ``t`` (inf on a
+    miss), ``u``, ``v``, ``edge_distance`` (``min(u, v, 1−u−v)``, the
+    barycentric distance to the nearest edge) and ``edge`` ((K, 2, 3), that
+    edge's two vertices as given, bit for bit)."""
+    keys = ("tri", "t", "u", "v", "edge_distance", "edge")
+    cols = list(zip(*_f64_rows(a, b, c, o, d, rows))) or [[]] * len(keys)
+    out = {k: np.asarray(col) for k, col in zip(keys, cols)}
+    out["tri"] = out["tri"].astype(np.int64)
+    out["edge"] = out["edge"].reshape(-1, 2, 3).astype(np.asarray(a).dtype)
+    return out
+
+
+def f64_on_triangle(a, b, c, o, d, tri):
+    """Float64 (t, u, v) of triangle ``tri[r]`` on ray ``r``, for every ray,
+    with no acceptance test: what a reference that stores only hit ids had
+    for t, u and v."""
+    tri = np.asarray(tri)
+    a, b, c = (np.asarray(x)[tri].astype(np.float64) for x in (a, b, c))
+    _, t, u, v = _mt64(a, b, c, *(np.asarray(x).astype(np.float64) for x in (o, d)))
+    return t, u, v
+
+
+def _with_edge(a, b, c, edge) -> np.ndarray:
+    """Mask of the triangles that have both vertices of ``edge`` among their
+    own, bit for bit (none for a degenerate edge)."""
+    def bits(x):
+        x = np.ascontiguousarray(x)
+        return x.view(np.dtype(f"u{x.dtype.itemsize}"))
+
+    p, q = bits(edge[0]), bits(edge[1])
+    verts = [bits(x) for x in (a, b, c)]
+    has_p = np.logical_or.reduce([(x == p).all(axis=1) for x in verts])
+    has_q = np.logical_or.reduce([(x == q).all(axis=1) for x in verts])
+    return has_p & has_q & (not np.array_equal(p, q))
+
+
+def assert_hit_parity_at_scale(got, ref, a, b, c, o, d) -> dict:
+    """`assert_hit_parity` with the crack rule, for rays traced at the sizes
+    people render (``a``, ``b``, ``c``: the real triangles, (N, 3) each;
+    ``o``, ``d``: the rays, in the order of ``got`` and ``ref``).
+
+    A ray is *divergent* where the hit masks differ, or where both sides hit
+    triangles of different ids whose t differ by more than ``_TIE_RTOL``.
+    Every other ray is held to `assert_hit_parity` as it stands, with u and v
+    within ``UV_ATOL_AT_SCALE`` times `uv_condition` of ``ref``'s triangle.
+    Every divergent ray must meet all of:
+
+    (a) float64 Möller–Trumbore over every triangle (`f64_nearest`) hits it;
+    (b) float64's hit lies within ``max(EDGE_EPS, UV_ATOL_AT_SCALE ×
+        uv_condition)`` (barycentric; `uv_condition` of float64's triangle on
+        the ray) of an edge that another real triangle shares, both endpoints
+        bit-equal: float32 sees a ray inside or outside by u and v, which
+        carry about that error, so a ray seen from far or at a graze can fall
+        through a wider crack;
+    (c) at least one side equals float64's answer in its mask and its id, up
+        to an exact-t tie across that edge: a side that hit the triangle on
+        the edge's other side, whose float64 t lies within ``_TIE_RTOL`` of
+        float64's, agrees with it as `assert_hit_parity` lets two sides
+        agree at a tie (listed in ``across_edge``).
+
+    Divergent rays are checked one by one, each with its own float64 pass,
+    so the first that breaks the rule raises at once.
+
+    Where both sides hit the same triangle, t is held within ``_TIE_RTOL``
+    times `grazing_factor` of ``ref``'s triangle on the ray: t = e2·q / det
+    is a quotient by det, as u and v are, so a grazing ray amplifies an ulp
+    of difference in its rays or its numerators.  Such a ray beyond the
+    fixed bound is held to the scaled one, and to the u/v bound, and listed
+    in ``grazing_t``.
+
+    Returns `assert_hit_parity`'s counts over the other rays, plus
+    ``divergent`` (the rays' indices), ``agrees`` (``"got"`` or ``"ref"``
+    per divergent ray: the side float64 sides with), ``f64_tri``,
+    ``edge_distance`` and ``edge_bound`` per divergent ray,
+    ``max_edge_distance``, ``across_edge`` and ``grazing_t``."""
+    t_g, tri_g, u_g, v_g = _hit_fields(got)
+    t_r, tri_r, u_r, v_r = _hit_fields(ref)
+    o, d = np.asarray(o), np.asarray(d)
+    hit_g, hit_r = t_g != MAX_FLOAT, t_r != MAX_FLOAT
+    uv_scale = uv_condition(a, b, c, o, d, tri_r)
+    apart = np.abs(t_g.astype(np.float64) - t_r) > _TIE_RTOL * np.abs(t_r.astype(np.float64))
+    divergent = (hit_g != hit_r) | (hit_g & hit_r & (tri_g != tri_r) & apart)
+    rows = np.flatnonzero(divergent)
+    keep = ~divergent
+    grazing = hit_g & hit_r & (tri_g == tri_r) & apart
+    scale = grazing_factor(a, b, c, np.asarray(d)[grazing], tri_r[grazing])
+    dt = np.abs(t_g[grazing].astype(np.float64) - t_r[grazing])
+    over = dt > _TIE_RTOL * scale * np.abs(t_r[grazing].astype(np.float64))
+    assert not over.any(), (
+        f"t beyond {_TIE_RTOL} x grazing factor on rays {np.flatnonzero(grazing)[over]}")
+    for name, g, r in (("u", u_g, u_r), ("v", v_g, v_r)):
+        assert not (np.abs(g[grazing] - r[grazing])
+                    > UV_ATOL_AT_SCALE * uv_scale[grazing]).any(), (
+            f"{name} beyond UV_ATOL_AT_SCALE x uv_condition on a grazing ray")
+    keep &= ~grazing
+
+    def kept(t, tri, u, v):
+        return SimpleNamespace(t=t[keep], tri=tri[keep], u=u[keep], v=v[keep])
+
+    stats = assert_hit_parity(
+        kept(t_g, tri_g, u_g, v_g), kept(t_r, tri_r, u_r, v_r), uv_atol=UV_ATOL_AT_SCALE,
+        uv_scale=uv_scale[keep])
+    agrees, across_edge, f64_tri, edge_distance, edge_bound = [], [], [], [], []
+    for r, (j, t64, _, _, dist, edge) in zip(rows, _f64_rows(a, b, c, o, d, rows)):
+        assert j >= 0, f"ray {r}: the sides differ and float64 misses it"
+        bound = max(EDGE_EPS, UV_ATOL_AT_SCALE * float(
+            uv_condition(a, b, c, o[r:r + 1], d[r:r + 1], [j])[0]))
+        assert dist <= bound, (
+            f"ray {r}: the sides differ {dist:.3g} from triangle {j}'s nearest edge, "
+            f"beyond max(EDGE_EPS, UV_ATOL_AT_SCALE x uv_condition) = {bound:.3g}")
+        sharing = _with_edge(a, b, c, edge)
+        sharing[j] = False
+        assert sharing.any(), (
+            f"ray {r}: the sides differ near an edge of triangle {j} that no other "
+            f"triangle shares")
+        sides = {"got": int(tri_g[r]) if hit_g[r] else None,
+                 "ref": int(tri_r[r]) if hit_r[r] else None}
+        exact = [k for k, s in sides.items() if s == j]
+        tied = [k for k, s in sides.items() if s is not None and sharing[s] and abs(
+            f64_on_triangle(a, b, c, o[r], d[r], s)[0] - t64) <= _TIE_RTOL * t64]
+        assert exact or tied, (
+            f"ray {r}: neither side agrees with float64's hit on triangle {j} "
+            f"(got {sides['got']}, ref {sides['ref']}; None is a miss)")
+        agrees.append((exact or tied)[0])
+        if not exact:
+            across_edge.append(int(r))
+        f64_tri.append(j)
+        edge_distance.append(float(dist))
+        edge_bound.append(bound)
+    stats.update(
+        divergent=[int(r) for r in rows], agrees=agrees, f64_tri=f64_tri,
+        max_edge_distance=max(edge_distance, default=0.0), edge_distance=edge_distance,
+        edge_bound=edge_bound, across_edge=across_edge,
+        grazing_t=[int(r) for r in np.flatnonzero(grazing)],
+    )
+    return stats
+
+
+def encode_hits(mask, tri) -> dict:
+    """The arrays of a stored answer (`load_hit_fixture` reads them back):
+    ``rays``, ``mask_bits`` (`np.packbits` of the hit mask) and
+    ``hit_tri_delta`` (the hit rays' triangle ids in ray order, delta-coded
+    as int32)."""
+    mask = np.asarray(mask, bool)
+    return {"rays": np.int64(mask.size), "mask_bits": np.packbits(mask),
+            "hit_tri_delta": np.diff(np.asarray(tri)[mask].astype(np.int64),
+                                     prepend=0).astype(np.int32)}
+
+
+def load_hit_fixture(path):
+    """(hit mask, tri) of a stored answer: ``mask_bits`` (`np.packbits` of the
+    mask over ``rays`` rays) and ``hit_tri_delta`` (the hit rays' triangle
+    ids in ray order, delta-coded, int32).  ``tri`` is 0 on a miss, as a
+    HitRecord has it."""
+    with np.load(path) as z:
+        n = int(z["rays"])
+        mask = np.unpackbits(z["mask_bits"], count=n).astype(bool)
+        tri = np.zeros(n, np.int32)
+        tri[mask] = np.cumsum(z["hit_tri_delta"], dtype=np.int64).astype(np.int32)
+    return mask, tri
+
+
+def hits_from_ids(mask, tri, a, b, c, o, d):
+    """A hit record for a reference that stores only its mask and ids: t, u,
+    v of each hit ray's triangle in float64 (`f64_on_triangle`), rounded to
+    float32; t is ``MAX_FLOAT`` on a miss."""
+    mask, tri = np.asarray(mask, bool), np.asarray(tri, np.int32)
+    t, u, v = (x.astype(np.float32) for x in f64_on_triangle(a, b, c, o, d, tri))
+    zero = np.float32(0.0)
+    return SimpleNamespace(t=np.where(mask, t, MAX_FLOAT), tri=tri,
+                           u=np.where(mask, u, zero), v=np.where(mask, v, zero))
 
 
 def assert_bits_equal(got, want, name: str = "array"):
