@@ -46,7 +46,12 @@ the repo calls real (260,642 triangles at 1920x1056 with shadow rays;
 - the traversal kernels K1, K2 and K1c at config 2 (65,522 triangles,
   512x512, the default tree) through ``render_hits`` and ``trace_rays``,
   held to the JAX package's committed answer under the crack rule
-  (``parity_scale``).
+  (``parity_scale``);
+- the shadowed frame at configs 2 and 3 (``render_frame(..., shadows=True)``,
+  K1 nearest-hit and any-hit, K2's primary hits at config 3) and the
+  animated frame of config 4's deforming mesh (refit, K1), held to the JAX
+  package's committed answers under the crack, occlusion and frame rules
+  (``parity_frame``).
 
 It builds the hand-written kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, shows by launch counts
@@ -1460,7 +1465,7 @@ def run_parity_scale(rt, smi) -> None:
     on, dn = o.cpu().numpy(), d.cpu().numpy()
     tris = scene.triangles
     a, b, c = (x[:scene.count].cpu().numpy() for x in (tris.a, tris.b, tris.c))
-    mask, tri = parity.load_hit_fixture(os.path.join(GOLDEN_DIR, "torch_config2_hits_jax.npz"))
+    mask, tri, _ = parity.load_hit_fixture(os.path.join(GOLDEN_DIR, "torch_config2_hits_jax.npz"))
     ref = parity.hits_from_ids(mask, tri, a, b, c, on, dn)
     kernels = {}
     for name, hits in answers.items():
@@ -1487,6 +1492,215 @@ def run_parity_scale(rt, smi) -> None:
          dirs_differing_bitwise_from_cpu=int((d.cpu() != d_cpu).any(dim=1).sum()),
          origins_differing_bitwise_from_cpu=int((o.cpu() != o_cpu).any(dim=1).sum()),
          rays=W * H, seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+
+
+# What ``parity_frame`` must find against the JAX package's fixtures (found
+# by the phase's first full run on an H100): the divergent
+# rays of each kernel's primary hits (crack rule), of K1's shadow mask
+# (occlusion rule) and the pixels more than 1/255 off (frame rule).  The
+# card's rays are not the CPU's (1,123 of config 2's 262,144 directions
+# differ), so its lists are not the CPU suite's.
+_CRACKS3 = [582869, 642104, 809183, 956884, 991632, 1014266, 1060878, 1070837, 1122217,
+            1124269, 1220518]
+PARITY_FRAME_PINS = {
+    "config2": {"trace_bvh4": [108203], "shadow": [], "frame_beyond_1": [108203]},
+    "config3": {
+        "trace_bvh4": _CRACKS3, "trace_bvh2": _CRACKS3,
+        "shadow":
+            [473357, 473359, 479132, 481054, 484897, 490662, 502191, 505970, 511799, 511959,
+             517565, 517727, 521410, 523493, 523494, 527180, 529104, 530913, 531185, 532955,
+             534749, 538723, 538724, 540492, 540497, 544491, 554100, 554101, 561789, 563476,
+             584574, 588407, 590322, 590323, 609490, 613327, 615104, 649787, 653625, 682412,
+             684331, 720790, 726544, 1001725, 1134089],
+        "frame_beyond_1":
+            [492496, 582869, 642104, 653468, 809183, 891605, 892130, 930446, 956884, 991632,
+             1014266, 1060878, 1070837, 1122217, 1124269, 1220518, 1243557, 1245425]},
+    "config4": {"trace_bvh4": []},
+}
+
+
+def hold_to_fixture(scene, bvh, cam, fixture, hits, shadow, frame, plain):
+    """One configuration's card answers held to a JAX fixture: each kernel's
+    primary hits (``hits``: name → HitRecord) under the crack rule and to
+    its plain version (``plain``: name → HitRecord) bit for bit where tri
+    agrees; K1's shadow mask under the occlusion rule, on the card's own
+    shadow rays, where both sides hit the same triangle; the frame under the
+    frame rule.  ``shadow`` and ``frame`` None: primary hits only (a fixture
+    without ``shadow_bits`` and ``frame_u8``).
+
+    The fixture's shadow flags were traced on JAX's own shadow rays, whose
+    origins differ in the last bits from the card's, so the occlusion rule
+    judges both sides against float64 of the card's rays: an ``agrees`` of
+    ``"ref"`` says JAX's flag is float64's on the card's ray."""
+    from unitysimpleraytracing_tpu_torch.core.camera import generate_rays
+    from unitysimpleraytracing_tpu_torch.pipeline import render
+    from unitysimpleraytracing_tpu_torch.utils import parity
+
+    o, d = (x.cpu().numpy() for x in generate_rays(cam))
+    tris = scene.triangles
+    a, b, c = (x[:scene.count].cpu().numpy() for x in (tris.a, tris.b, tris.c))
+    mask, tri, jshadow = parity.load_hit_fixture(fixture)
+    ref = parity.hits_from_ids(mask, tri, a, b, c, o, d)
+    out = {"hit_rays_jax": int(mask.sum())}
+    for name, h in hits.items():
+        got = np_hits(h)
+        vs_plain = parity.assert_hit_parity(got, np_hits(plain[name]), exact=True)
+        st = parity.assert_hit_parity_at_scale(got, ref, a, b, c, o, d)
+        out[name] = {"hit_rays": int((got.t != MAX_FLOAT).sum()),
+                     "tri_ties_vs_plain": vs_plain["tri_ties"],
+                     **{k: st[k] for k in ("divergent", "agrees", "f64_tri", "across_edge",
+                                           "max_edge_distance", "grazing_t", "tri_ties",
+                                           "tie_rays")}}
+    if shadow is None:
+        return out
+    with np.load(fixture) as z:
+        jframe = z["frame_u8"]
+    k1 = np_hits(hits["trace_bvh4"])
+    so, sd, bound = render.shadow_rays(scene, bvh, hits["trace_bvh4"], cam)
+    so, sd = so.cpu().numpy(), sd.cpu().numpy()
+    card_shadow = shadow.cpu().numpy()
+    both = np.flatnonzero((k1.t != MAX_FLOAT) & mask & (k1.tri == tri))
+    occ = parity.assert_occlusion_parity_at_scale(
+        card_shadow[both], jshadow[both], a, b, c, so[both], sd[both], float(bound))
+    out["shadow"] = {"occluded_rays": {"card": int(card_shadow.sum()), "jax": int(jshadow.sum())},
+                     "divergent": both[occ["divergent"]].tolist(), "agrees": occ["agrees"],
+                     "edge_distance": occ["edge_distance"],
+                     "near_threshold": both[occ["near_threshold"]].tolist()}
+    explained = (out["trace_bvh4"]["divergent"] + out["trace_bvh4"]["tie_rays"]
+                 + out["shadow"]["divergent"])
+    out["frame"] = parity.assert_frame_parity_at_scale(
+        parity.frame_to_uint8(frame.cpu().numpy()), jframe, explained)
+    return out
+
+
+def run_parity_frame(rt, smi, out_dir) -> None:
+    """The card held to the JAX package's committed answers for the shadowed
+    frame and the animated frame (``tests/golden/torch_config{2_frame,3,4}
+    _jax.npz``; the CPU suite holds each file to the JAX package bit for
+    bit), each configuration driven with the launch counts set to 0 just
+    before and read just after:
+
+    - config 2 (65,522 triangles, 512x512, the default tree):
+      ``render_frame(impl="cuda4", shadows=True)``, ``render_hits`` and
+      ``render._shadow_mask`` (K1 nearest-hit and any-hit);
+    - config 3 (260,642 triangles, 1920x1056, the default tree): the same
+      through K1, and ``render_hits(impl="cuda2")`` (K2);
+    - config 4 (the config-2 scene deformed by ``0.5·sin(0.37·x + phase)``
+      on y, positions made in numpy as the CPU suite makes them): the refit
+      at phase 0.7 against the fixture's SHA-256 of JAX's node boxes, and
+      ``make_animated_renderer(impl="cuda4")`` at 0.9 (K1).
+
+    Primary hits go under the crack rule, K1's shadow mask under the
+    occlusion rule (on the card's shadow rays, where both sides hit the same
+    triangle), the frames under the frame rule; each kernel is held bit for
+    bit to its plain version on the same rays (``plain4``, ``plain2``; the
+    shadow mask to ``plain4``'s on the card's shadow rays).  Emits
+    ``parity_frame`` and writes it to ``parity_frame.json`` under ``--out``;
+    then asserts the divergent lists of ``PARITY_FRAME_PINS``."""
+    from unitysimpleraytracing_tpu_torch.ops import trace_bvh2, trace_bvh4
+    from unitysimpleraytracing_tpu_torch.pipeline import render
+    from unitysimpleraytracing_tpu_torch.utils import parity
+
+    t_phase = time.perf_counter()
+    K1, K2 = trace_bvh4.traverse_bvh4, trace_bvh2.traverse_bvh2
+    tex = rt.solid_texture((0.8, 0.7, 0.6, 1.0))
+    bg = np.asarray([0.1, 0.1, 0.12], np.float32)
+    report = {}
+
+    configs = {
+        "config2": (dict(res=182, size=80.0, amplitude=9.0, seed=0),
+                    dict(eye=(55.0, 45.0, 70.0), width=512, height=512)),
+        "config3": (dict(res=362, size=160.0, amplitude=20.0, seed=1),
+                    dict(eye=(110.0, 90.0, 140.0), width=1920, height=1056)),
+    }
+    built = {}
+    for name, (mesh_kw, cam_kw) in configs.items():
+        t0 = time.perf_counter()
+        scene = rt.build_scene(rt.terrain_mesh(**mesh_kw))
+        bvh = rt.build_bvh(scene)
+        cam = rt.make_camera(target=(0.0, 0.0, 0.0), fov_deg=60.0, **cam_kw)
+        built[name] = (scene, bvh, cam)
+        torch.cuda.synchronize()
+        K1.launches = K2.launches = 0
+        frame = rt.render_frame(scene, bvh, cam, tex, bg, impl="cuda4", shadows=True)
+        hits = {"trace_bvh4": rt.render_hits(scene, bvh, cam, impl="cuda4")}
+        if name == "config3":
+            hits["trace_bvh2"] = rt.render_hits(scene, bvh, cam, impl="cuda2")
+        shadow = render._shadow_mask(scene, bvh, hits["trace_bvh4"], "cuda4", cam)
+        torch.cuda.synchronize()
+        launches = {"trace_bvh4": K1.launches, "trace_bvh2": K2.launches}
+        assert launches == {"trace_bvh4": 4, "trace_bvh2": len(hits) - 1}, (
+            f"parity_frame {name} launches: {launches}")
+        plain = {k: rt.render_hits(scene, bvh, cam, impl=k.replace("trace_bvh", "plain"))
+                 for k in hits}
+        assert torch.equal(shadow, render._shadow_mask(scene, bvh, hits["trace_bvh4"], "plain4",
+                                                       cam)), "K1's shadow mask differs from plain4's"
+        fixture = os.path.join(GOLDEN_DIR, f"torch_{name}{'_frame' if name == 'config2' else ''}"
+                                           "_jax.npz")
+        report[name] = {
+            "triangles": scene.count, "rays": cam.width * cam.height, "launches": launches,
+            **hold_to_fixture(scene, bvh, cam, fixture, hits, shadow, frame, plain),
+            "seconds": time.perf_counter() - t0}
+        del frame, hits, shadow, plain
+
+    # Config 4: the config-2 scene and default tree, deformed.
+    t0 = time.perf_counter()
+    scene, bvh, cam = built["config2"]
+    fixture = os.path.join(GOLDEN_DIR, "torch_config4_jax.npz")
+    with np.load(fixture) as z:
+        want = {k: str(z[k]) for k in ("refit_sha256", "refit_positions_sha256",
+                                       "frame_positions_sha256")}
+    corners = [x.cpu().numpy() for x in (scene.triangles.a, scene.triangles.b, scene.triangles.c)]
+    pos = {ph: parity.config4_positions(*corners, ph) for ph in (0.7, 0.9)}
+    digests = {"refit_positions_sha256": parity.bits_digest(pos[0.7]),
+               "frame_positions_sha256": parity.bits_digest(pos[0.9])}
+    for k, v in digests.items():
+        assert v == want[k], (f"config 4: {k} {v} is not the fixture's {want[k]}: this "
+                              "numpy rounds float32 sin otherwise")
+    refit = rt.refit_bvh(rt.deform_scene(scene, torch.from_numpy(pos[0.7]).cuda()), bvh)
+    refit_digest = parity.bits_digest(refit.node_aabb_min.cpu().numpy(),
+                                      refit.node_aabb_max.cpu().numpy())
+    assert refit_digest == want["refit_sha256"], "config 4: the refit boxes differ from JAX's"
+    anim = rt.make_animated_renderer(scene, bvh, cam, impl="cuda4")
+    p9 = torch.from_numpy(pos[0.9]).cuda()
+    torch.cuda.synchronize()
+    K1.launches = 0
+    hits = {"trace_bvh4": anim(p9)}
+    torch.cuda.synchronize()
+    launches = {"trace_bvh4": K1.launches}
+    assert launches == {"trace_bvh4": 1}, f"parity_frame config4 launches: {launches}"
+    plain = {"trace_bvh4": rt.make_animated_renderer(scene, bvh, cam, impl="plain4")(p9)}
+    deformed = rt.deform_scene(scene, p9)
+    report["config4"] = {
+        "triangles": scene.count, "rays": cam.width * cam.height, "launches": launches,
+        "refit_sha256": refit_digest, "refit_bit_identical_to_jax": True, **digests,
+        **hold_to_fixture(deformed, bvh, cam, fixture, hits, None, None, plain),
+        "seconds": time.perf_counter() - t0}
+    del built, scene, bvh, cam, hits, plain, deformed
+
+    line = {"phase": "parity_frame", "tree": "default (sah_free)",
+            "references": {k: f"tests/golden/torch_{k}_jax.npz"
+                           for k in ("config2_frame", "config3", "config4")},
+            "texture": [0.8, 0.7, 0.6, 1.0], "background": bg.tolist(),
+            "rules": "primary hits: assert_hit_parity_at_scale (crack rule); K1's shadow "
+                     "mask: assert_occlusion_parity_at_scale (a flag may differ only where "
+                     "float64 puts the ray in a crack along a shared edge or a blocker at "
+                     "the segment's end, on the card's shadow rays where both sides hit "
+                     "one triangle: JAX's flags, traced on JAX's own rays, are judged "
+                     "against float64 of the card's rays, so agrees 'ref' means JAX's flag "
+                     "is float64's on the card's ray); K1's shadow mask bit for bit to "
+                     "plain4's on the card's shadow rays; frames: assert_frame_parity_at_scale (every pixel "
+                     "more than 1/255 off on a ray those rules list, and the golden bound); "
+                     "each kernel bit for bit to its plain version where tri agrees",
+            **report, "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    print(json.dumps(line), flush=True)
+    with open(os.path.join(out_dir, "parity_frame.json"), "w") as f:
+        json.dump(line, f, indent=1)
+    for name, pins in PARITY_FRAME_PINS.items():
+        for key, want_rays in pins.items():
+            got = (report[name]["frame"]["beyond_1"] if key == "frame_beyond_1"
+                   else report[name][key]["divergent"])
+            assert got == want_rays, f"parity_frame {name} {key}: {got}, pinned {want_rays}"
 
 
 def write_obj(path: str, mesh) -> None:
@@ -1756,6 +1970,9 @@ def main() -> int:
 
     # ---- 3b. parity_scale: K1, K2, K1c against the JAX package at config 2
     run_parity_scale(rt, smi)
+
+    # ---- 3c. parity_frame: the shadowed and the animated frame against JAX
+    run_parity_frame(rt, smi, out_dir)
 
     # The shared-stack packet engine against the per-ray oracle: a 64x64
     # frame of the same scene, 4 packets of 1024 rays in lockstep.  A host

@@ -478,3 +478,22 @@ def test_no_not_ported_path_is_left_in_the_port():
             if n.endswith(".py"):
                 text = open(os.path.join(d, n), encoding="utf-8").read()
                 assert "not ported" not in text and "NotImplementedError" not in text, n
+
+
+def test_committed_jax_fixtures_stay_under_three_megabytes():
+    golden = os.path.join(ROOT, "tests", "golden")
+    sizes = {n: os.path.getsize(os.path.join(golden, n))
+             for n in os.listdir(golden) if n.startswith("torch_")}
+    assert {"torch_config2_hits_jax.npz", "torch_config2_frame_jax.npz",
+            "torch_config3_jax.npz", "torch_config4_jax.npz"} <= set(sizes), sorted(sizes)
+    assert sum(sizes.values()) < 3_000_000, sizes
+
+
+def test_parity_module_imports_neither_jax_nor_torch():
+    # utils/parity is the contract that chip_smoke.py and the CPU suite share:
+    # numpy only (its package's constants aside).
+    path = os.path.join(ROOT, "unitysimpleraytracing_tpu_torch", "utils", "parity.py")
+    mods = {line.split()[1].split(".")[0] for line in open(path, encoding="utf-8")
+            if line.startswith(("import ", "from "))}
+    assert mods <= {"__future__", "hashlib", "types", "numpy",
+                    "unitysimpleraytracing_tpu_torch"}, mods

@@ -181,9 +181,10 @@ def test_fixture_codec_round_trips(tmp_path):
     tri = np.where(mask, rng.integers(0, 70000, 1001), 0).astype(np.int32)
     path = tmp_path / "hits.npz"
     np.savez_compressed(path, **encode_hits(mask, tri))
-    got_mask, got_tri = load_hit_fixture(path)
+    got_mask, got_tri, got_shadow = load_hit_fixture(path)
     np.testing.assert_array_equal(got_mask, mask)
     np.testing.assert_array_equal(got_tri, tri)
+    assert got_shadow is None
 
 
 def test_hits_from_ids_is_float64_of_the_stored_triangle():
@@ -280,7 +281,7 @@ def test_config2_jax_answer_equals_the_fixture():
         assert sorted(z.files) == sorted(want)
         for k, v in want.items():
             parity.assert_bits_equal(z[k], v, k)
-    mask, tri = load_hit_fixture(FIXTURE)
+    mask, tri, _ = load_hit_fixture(FIXTURE)
     np.testing.assert_array_equal(mask, s.jh.t != MAX_FLOAT)
     np.testing.assert_array_equal(tri[mask], s.jh.tri[mask])
 
@@ -290,7 +291,7 @@ def test_config2_fixture_as_the_card_reads_it():
     with the plain version: float64 t, u, v of JAX's triangles stand in for
     the t, u, v the fixture does not store."""
     s = _both("config2")
-    mask, tri = load_hit_fixture(FIXTURE)
+    mask, tri, _ = load_hit_fixture(FIXTURE)
     ref = hits_from_ids(mask, tri, s.a, s.b, s.c, s.o, s.d)
     st = _at_scale(s, _port_hits("config2", "plain4"), ref)
     assert st["divergent"] == [108203] and st["agrees"] == ["got"]

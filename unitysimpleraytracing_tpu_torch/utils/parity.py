@@ -16,9 +16,12 @@ ray: float64 decides what it should hit.
 """
 from __future__ import annotations
 
+import hashlib
 from types import SimpleNamespace
 
 import numpy as np
+
+from unitysimpleraytracing_tpu_torch import constants as C
 
 MAX_FLOAT = np.float32(3.4028234663852886e38)
 # Relative bound on t between two traversal substrates, and the definition of
@@ -33,6 +36,15 @@ EDGE_EPS = 1e-4
 # u, v bound at the bench's sizes, times `uv_condition`: 4 float32 eps (the
 # sides differ by up to 1.66 of it at config 2, each side and float64 by 1.12).
 UV_ATOL_AT_SCALE = 4 * float(np.finfo(np.float32).eps)
+# The occlusion rule's bound on the segment's end, relative to far − eps and
+# times `grazing_factor`: 4 float32 eps (t is a quotient by det, so float32
+# rounds a grazing triangle's t by about eps x `grazing_factor`; the flips
+# at config 3's segment ends need up to 1.10 of it, at grazing factors
+# 143–243).
+SEGMENT_END_RTOL = 4 * float(np.finfo(np.float32).eps)
+# The shadow segment ends this far short of the far point: the default
+# ``eps`` of `ops.dispatch.occluded`, which every shadow pass traces with.
+SHADOW_EPS = 4e-3
 
 
 def _hit_fields(h):
@@ -138,17 +150,25 @@ def _mt64(a, b, c, o, d):
     return det, t, u, v
 
 
+def _accept64(det, t, u, v):
+    """The reference's acceptance of a Möller–Trumbore answer: ``det`` outside
+    (−1e-8, 1e-8), ``u ≥ 0``, ``v ≥ 0``, ``u + v ≤ 1``, ``t > 0``."""
+    return ~((det > -1e-8) & (det < 1e-8)) & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 0)
+
+
+# u = 0 lies on edge a–c, v = 0 on a–b, 1 − u − v = 0 on b–c.
+_EDGES = ((0, 2), (0, 1), (1, 2))
+
+
 def _f64_rows(a, b, c, o, d, rows):
     """`f64_nearest` one row at a time, lazily: yields (tri, t, u, v,
     edge_distance, edge) per row, tri −1 on a miss."""
     verts = [np.asarray(x) for x in (a, b, c)]
     a64, b64, c64 = (x.astype(np.float64) for x in verts)
     o, d = np.asarray(o), np.asarray(d)
-    # u = 0 lies on edge a–c, v = 0 on a–b, 1 − u − v = 0 on b–c.
-    edges = ((0, 2), (0, 1), (1, 2))
     for r in np.asarray(rows, np.int64).reshape(-1):
         det, t, u, v = _mt64(a64, b64, c64, o[r].astype(np.float64), d[r].astype(np.float64))
-        ok = ~((det > -1e-8) & (det < 1e-8)) & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 0)
+        ok = _accept64(det, t, u, v)
         if not ok.any():
             yield -1, np.inf, np.nan, np.nan, np.inf, np.zeros((2, 3), verts[0].dtype)
             continue
@@ -157,7 +177,7 @@ def _f64_rows(a, b, c, o, d, rows):
         bary = (u[j], v[j], 1.0 - u[j] - v[j])
         e = int(np.argmin(bary))
         yield j, t[j], u[j], v[j], bary[e], np.stack(
-            (verts[edges[e][0]][j], verts[edges[e][1]][j]))
+            (verts[_EDGES[e][0]][j], verts[_EDGES[e][1]][j]))
 
 
 def f64_nearest(a, b, c, o, d, rows) -> dict:
@@ -239,7 +259,8 @@ def assert_hit_parity_at_scale(got, ref, a, b, c, o, d) -> dict:
     in ``grazing_t``.
 
     Returns `assert_hit_parity`'s counts over the other rays, plus
-    ``divergent`` (the rays' indices), ``agrees`` (``"got"`` or ``"ref"``
+    ``divergent`` (the rays' indices), ``tie_rays`` (the rays whose ids
+    differ at an exact-t tie), ``agrees`` (``"got"`` or ``"ref"``
     per divergent ray: the side float64 sides with), ``f64_tri``,
     ``edge_distance`` and ``edge_bound`` per divergent ray,
     ``max_edge_distance``, ``across_edge`` and ``grazing_t``."""
@@ -297,8 +318,10 @@ def assert_hit_parity_at_scale(got, ref, a, b, c, o, d) -> dict:
         f64_tri.append(j)
         edge_distance.append(float(dist))
         edge_bound.append(bound)
+    tie_rays = np.flatnonzero(hit_g & hit_r & (tri_g != tri_r) & ~apart)
     stats.update(
         divergent=[int(r) for r in rows], agrees=agrees, f64_tri=f64_tri,
+        tie_rays=[int(r) for r in tie_rays],
         max_edge_distance=max(edge_distance, default=0.0), edge_distance=edge_distance,
         edge_bound=edge_bound, across_edge=across_edge,
         grazing_t=[int(r) for r in np.flatnonzero(grazing)],
@@ -306,28 +329,282 @@ def assert_hit_parity_at_scale(got, ref, a, b, c, o, d) -> dict:
     return stats
 
 
-def encode_hits(mask, tri) -> dict:
+def _occlusion_limits(a, b, c, origin_bound):
+    """``(far, far − SHADOW_EPS)`` in float32 as `occluded` computes them: ``far =
+    4·ext + origin_bound + 1`` with ``ext`` the largest coordinate of the
+    triangles' inflated boxes (a scene's padding slots add only ±inflation)."""
+    f32 = np.float32
+    verts = [np.asarray(x, f32) for x in (a, b, c)]
+    infl = f32(C.AABB_INFLATION)
+    lo = np.minimum(np.minimum(verts[0], verts[1]), verts[2]) - infl
+    hi = np.maximum(np.maximum(verts[0], verts[1]), verts[2]) + infl
+    ext = max(np.abs(lo).max(), np.abs(hi).max())
+    far = f32(4.0) * ext + f32(origin_bound) + f32(1.0)
+    return far, far - f32(SHADOW_EPS)
+
+
+def _shadow_ray64(verts, verts64, o, d, far, limit):
+    """Float64 of one shadow ray (``o``, ``d``: float32 (3,)) traced as
+    `occluded` traces it, from ``o + d·far`` (float32, as both packages
+    form it) along ``−d``.  Returns a per-ray view: ``blockers`` (the
+    triangles float64 accepts strictly inside the segment, t < far − eps)
+    and what `_explain_flip` needs."""
+    bo = o + d * far
+    bo64, bd64 = bo.astype(np.float64), -d.astype(np.float64)
+    det, t, u, v = _mt64(*verts64, bo64, bd64)
+    ok = _accept64(det, t, u, v)
+    lim = float(limit)
+    return SimpleNamespace(verts=verts, bo=bo, bd=-d, det=det, t=t, u=u, v=v, ok=ok,
+                           lim=lim, blockers=np.flatnonzero(ok & (t < lim)))
+
+
+def _edge_bound(ray, j):
+    """The crack rule's per-ray edge bound for triangle ``j`` on ``ray``."""
+    a, b, c = ray.verts
+    return max(EDGE_EPS, UV_ATOL_AT_SCALE * float(
+        uv_condition(a, b, c, ray.bo[None], ray.bd[None], [j])[0]))
+
+
+def _end_bound(ray, j):
+    """How far from ``far − eps`` (in t) float32 may see triangle ``j``'s t
+    on ``ray``: ``SEGMENT_END_RTOL`` x `grazing_factor` x ``far − eps``."""
+    a, b, c = ray.verts
+    g = float(grazing_factor(a, b, c, ray.bd[None], [j])[0])
+    return SEGMENT_END_RTOL * g * ray.lim
+
+
+def _shared_edge(ray, j, bary) -> bool:
+    """Whether the edge of triangle ``j`` with the smallest barycentric in
+    ``bary`` (u, v, 1−u−v) is one another real triangle shares."""
+    e = _EDGES[int(np.argmin(bary))]
+    edge = np.stack([ray.verts[e[0]][j], ray.verts[e[1]][j]])
+    sharing = _with_edge(*ray.verts, edge)
+    sharing[j] = False
+    return bool(sharing.any())
+
+
+def _explain_flip(ray, r, side):
+    """Why float32 may see ``ray`` (ray index ``r``) otherwise than float64
+    does, or AssertionError.  Returns ``("edge_distance", d)`` or
+    ``("near_threshold", d)`` (``d``: the largest barycentric distance to
+    a shared edge, or of t to ``far − eps``, that the flip needed)."""
+    if len(ray.blockers):
+        # float64 occluded, ``side`` clear: float32 missed every blocker, so
+        # each lies in a crack along a shared edge or at the segment's end.
+        worst = {"edge_distance": [], "near_threshold": []}
+        for j in ray.blockers:
+            bary = np.array([ray.u[j], ray.v[j], 1.0 - ray.u[j] - ray.v[j]])
+            if abs(ray.t[j] - ray.lim) <= _end_bound(ray, j):
+                worst["near_threshold"].append(abs(ray.t[j] - ray.lim) / ray.lim)
+                continue
+            dist, bound = float(bary.min()), _edge_bound(ray, j)
+            assert dist <= bound and _shared_edge(ray, j, bary), (
+                f"shadow ray {r}: {side} sees no blocker, but float64 finds triangle "
+                f"{j} at t {ray.t[j]:.9g} (segment ends {ray.lim:.9g}), {dist:.3g} from "
+                f"its nearest edge (bound {bound:.3g}), not in a crack along an edge "
+                f"another triangle shares")
+            worst["edge_distance"].append(dist)
+        kind = "edge_distance" if worst["edge_distance"] else "near_threshold"
+        return kind, float(max(worst[kind]))
+    # float64 clear, ``side`` occluded: some triangle lies within the edge
+    # bound outside an edge another triangle shares, inside the segment, or
+    # float64 accepts one just beyond the segment's end.
+    bary = np.stack([ray.u, ray.v, 1.0 - ray.u - ray.v])
+    outside = -bary.min(axis=0)
+    live = ~((ray.det > -1e-8) & (ray.det < 1e-8)) & (ray.t > 0)
+    near_end = np.flatnonzero(ray.ok & (ray.t >= ray.lim))
+    for j in near_end[np.argsort(ray.t[near_end])]:
+        if ray.t[j] - ray.lim <= _end_bound(ray, j):
+            return "near_threshold", float((ray.t[j] - ray.lim) / ray.lim)
+    cand = np.flatnonzero(live & (ray.t < ray.lim) & (outside > 0))
+    n = len(cand)
+    bound = np.maximum(EDGE_EPS, UV_ATOL_AT_SCALE * uv_condition(
+        *ray.verts, np.broadcast_to(ray.bo, (n, 3)), np.broadcast_to(ray.bd, (n, 3)), cand))
+    near = cand[outside[cand] <= bound]
+    for j in near[np.argsort(outside[near])]:
+        if _shared_edge(ray, j, bary[:, j]):
+            return "edge_distance", float(outside[j])
+    raise AssertionError(
+        f"shadow ray {r}: {side} sees a blocker, but float64 finds none inside the segment, "
+        f"none within the edge bound outside an edge another triangle shares, and none "
+        f"within the rounding bound beyond its end")
+
+
+def float64_occlusion(a, b, c, o, d, origin_bound) -> dict:
+    """Float64 of one shadow ray (``o``, ``d``: (3,)) as the occlusion rule
+    sees it: ``occluded``, ``limit`` (far − eps) and per blocker ``tri``,
+    ``t``, ``edge_distance`` (barycentric, to its nearest edge),
+    ``edge_bound`` (the crack rule's bound there) and ``shared`` (whether
+    another real triangle has that edge).  For a ray the rule refuses and a
+    caller pins, so that the pin says why."""
+    verts = [np.asarray(x) for x in (a, b, c)]
+    far, limit = _occlusion_limits(a, b, c, origin_bound)
+    ray = _shadow_ray64(verts, [x.astype(np.float64) for x in verts], np.asarray(o),
+                        np.asarray(d), far, limit)
+    blockers = []
+    for j in ray.blockers:
+        bary = np.array([ray.u[j], ray.v[j], 1.0 - ray.u[j] - ray.v[j]])
+        blockers.append({"tri": int(j), "t": float(ray.t[j]), "edge_distance": float(bary.min()),
+                         "edge_bound": _edge_bound(ray, j), "shared": _shared_edge(ray, j, bary)})
+    return {"occluded": bool(blockers), "limit": ray.lim, "blockers": blockers}
+
+
+def assert_occlusion_parity_at_scale(got, ref, a, b, c, o, d, origin_bound) -> dict:
+    """Occlusion masks ``got`` and ``ref`` (bool (R,)) of shadow rays at the
+    sizes people render, with the crack rule carried over to a boolean over a
+    segment.  ``a``, ``b``, ``c``: the real triangles, (N, 3) each; ``o``,
+    ``d``: the shadow rays as `occluded` takes them, (R, 3) float32, the same
+    rays on both sides, or a pair ``(got's, ref's)`` where each side built
+    its own; ``origin_bound`` as `occluded` takes it.  The rays are traced
+    as `occluded` traces them: from ``o + d·far`` along ``−d``, occluded
+    where a hit lies before ``far − eps`` (``eps``: ``SHADOW_EPS``).
+
+    A ray is *divergent* where the flags differ.  Every divergent ray must
+    meet all of:
+
+    (a) float64 decides its flag: Möller–Trumbore over every triangle with
+        the reference's acceptance, blockers strictly inside the segment;
+    (b) the side that differs from float64 does so at a crack or at the
+        segment's end.  Where float64 is occluded, every blocker lies within
+        the crack rule's bound ``max(EDGE_EPS, UV_ATOL_AT_SCALE ×
+        uv_condition)`` of an edge another real triangle shares, so float32
+        can miss them all; where float64 is clear, some triangle lies within
+        that bound outside such an edge inside the segment, so float32 can
+        hit it.  In either case the triangle may instead lie, in float64 t,
+        within ``SEGMENT_END_RTOL × grazing_factor × (far − eps)`` of the
+        segment's end;
+    (c) at least one side equals float64's flag (on its own ray), unless
+        the segment's end explains both flips: where each side built its
+        own ray, the two segments end ulps apart and both may straddle a
+        blocker there.
+
+    Divergent rays are checked one by one, each with its own float64 pass,
+    so the first that breaks the rule raises at once.
+
+    Returns ``rays``, ``occluded`` (per side), ``divergent`` (the rays'
+    indices), ``agrees`` (per divergent ray: the side float64 sides with,
+    ``"both"`` where each side equals float64 on its own ray, ``"neither"``
+    where the segment's end explains both flips),
+    ``edge_distance`` (per divergent ray: the largest barycentric distance
+    its flip needed, ``None`` where the segment's end explains it) and
+    ``near_threshold`` (the divergent rays the segment's end explains)."""
+    got, ref = np.asarray(got, bool), np.asarray(ref, bool)
+    if isinstance(o, (tuple, list)):
+        rays = {"got": (np.asarray(o[0]), np.asarray(d[0])),
+                "ref": (np.asarray(o[1]), np.asarray(d[1]))}
+    else:
+        rays = dict.fromkeys(("got", "ref"), (np.asarray(o), np.asarray(d)))
+    verts = [np.asarray(x) for x in (a, b, c)]
+    verts64 = [x.astype(np.float64) for x in verts]
+    far, limit = _occlusion_limits(a, b, c, origin_bound)
+    flags = {"got": got, "ref": ref}
+    rows = np.flatnonzero(got != ref)
+    agrees, edge_distance, near_threshold = [], [], []
+    for r in rows:
+        right, why = [], {}
+        for side, (so, sd) in rays.items():
+            ray = _shadow_ray64(verts, verts64, so[r], sd[r], far, limit)
+            if bool(flags[side][r]) == bool(len(ray.blockers)):
+                right.append(side)
+            else:
+                why[side] = _explain_flip(ray, int(r), side)
+        kinds = {k for k, _ in why.values()}
+        assert right or kinds == {"near_threshold"}, (
+            f"shadow ray {r}: neither side agrees with float64 on its own ray "
+            f"(got {bool(got[r])}, ref {bool(ref[r])})")
+        agrees.append(right[0] if len(right) == 1 else ("both" if right else "neither"))
+        if kinds == {"near_threshold"}:
+            near_threshold.append(int(r))
+            edge_distance.append(None)
+        else:
+            edge_distance.append(max((x for k, x in why.values() if k == "edge_distance"),
+                                     default=0.0))
+    return {"rays": int(got.size), "occluded": {"got": int(got.sum()), "ref": int(ref.sum())},
+            "divergent": [int(r) for r in rows], "agrees": agrees,
+            "edge_distance": edge_distance, "near_threshold": near_threshold}
+
+
+def assert_frame_parity_at_scale(got_u8, want_u8, explained) -> dict:
+    """`compare_images` at the sizes people render, with every pixel more
+    than 1/255 off accounted for.  ``got_u8``, ``want_u8``: (H, W, C) uint8
+    frames in ray order (row 0 at the bottom, as ``render_frame`` returns
+    them); ``explained``: the rays the crack rule
+    (`assert_hit_parity_at_scale`) or the occlusion rule
+    (`assert_occlusion_parity_at_scale`) lets differ: the crack rule's
+    ``divergent`` and ``tie_rays`` (an exact-t tie shades the other
+    triangle), the occlusion rule's ``divergent``.  The golden
+    bound (more than 2/255 off on under 0.2 % of values) holds as well: at
+    two million pixels it alone would hide four thousand wrong ones.
+
+    Returns ``pixels``, ``beyond_1`` (the rays more than 1/255 off, all in
+    ``explained``), ``beyond_2`` (how many of them are more than 2/255 off),
+    ``max_diff`` and ``fraction_beyond_2`` (of channel values, as
+    `compare_images` counts)."""
+    frac = compare_images(got_u8, want_u8, "frame")
+    got_u8, want_u8 = np.asarray(got_u8), np.asarray(want_u8)
+    diff = np.abs(got_u8.astype(np.int32) - want_u8.astype(np.int32))
+    diff = diff.reshape(-1, diff.shape[-1]).max(axis=1)
+    off = np.flatnonzero(diff > 1)
+    stray = np.setdiff1d(off, np.asarray(list(explained), np.int64))
+    assert stray.size == 0, (
+        f"{stray.size} pixels more than 1/255 off on rays neither rule lets differ "
+        f"(first: {stray[:10].tolist()}, max diff {int(diff[stray].max())}/255)")
+    return {"pixels": int(diff.size), "beyond_1": off.tolist(),
+            "beyond_2": int((diff > 2).sum()), "max_diff": int(diff.max(initial=0)),
+            "fraction_beyond_2": frac}
+
+
+def encode_hits(mask, tri, shadow=None) -> dict:
     """The arrays of a stored answer (`load_hit_fixture` reads them back):
     ``rays``, ``mask_bits`` (`np.packbits` of the hit mask) and
     ``hit_tri_delta`` (the hit rays' triangle ids in ray order, delta-coded
-    as int32)."""
+    as int32); with ``shadow`` (an occlusion mask over the same rays) also
+    ``shadow_bits``, its `np.packbits`."""
     mask = np.asarray(mask, bool)
-    return {"rays": np.int64(mask.size), "mask_bits": np.packbits(mask),
-            "hit_tri_delta": np.diff(np.asarray(tri)[mask].astype(np.int64),
-                                     prepend=0).astype(np.int32)}
+    out = {"rays": np.int64(mask.size), "mask_bits": np.packbits(mask),
+           "hit_tri_delta": np.diff(np.asarray(tri)[mask].astype(np.int64),
+                                    prepend=0).astype(np.int32)}
+    if shadow is not None:
+        shadow = np.asarray(shadow, bool)
+        assert shadow.shape == mask.shape, (shadow.shape, mask.shape)
+        out["shadow_bits"] = np.packbits(shadow)
+    return out
 
 
 def load_hit_fixture(path):
-    """(hit mask, tri) of a stored answer: ``mask_bits`` (`np.packbits` of the
-    mask over ``rays`` rays) and ``hit_tri_delta`` (the hit rays' triangle
-    ids in ray order, delta-coded, int32).  ``tri`` is 0 on a miss, as a
-    HitRecord has it."""
+    """(hit mask, tri, occlusion mask) of a stored answer: ``mask_bits``
+    (`np.packbits` of the mask over ``rays`` rays), ``hit_tri_delta`` (the
+    hit rays' triangle ids in ray order, delta-coded, int32) and, where the
+    file stores it, ``shadow_bits`` (None where it does not).  ``tri`` is 0
+    on a miss, as a HitRecord has it."""
     with np.load(path) as z:
         n = int(z["rays"])
         mask = np.unpackbits(z["mask_bits"], count=n).astype(bool)
         tri = np.zeros(n, np.int32)
         tri[mask] = np.cumsum(z["hit_tri_delta"], dtype=np.int64).astype(np.int32)
-    return mask, tri
+        shadow = (np.unpackbits(z["shadow_bits"], count=n).astype(bool)
+                  if "shadow_bits" in z else None)
+    return mask, tri, shadow
+
+
+def config4_positions(a, b, c, phase: float) -> np.ndarray:
+    """``bench.py``'s config-4 deformation, ``y += 0.5·sin(0.37·x + phase)``
+    on every corner of the (T, 3) corner arrays ``a``, ``b``, ``c``, in
+    numpy float32, as the (T, 3, 3) positions ``deform_scene`` takes.  Made
+    once and handed to every package.  float32 ``np.sin`` may round
+    otherwise on another numpy or CPU, so a stored answer keeps the
+    positions' `bits_digest` beside it."""
+    pos = np.stack([np.asarray(x, np.float32) for x in (a, b, c)], axis=1)
+    pos[..., 1] += np.float32(0.5) * np.sin(pos[..., 0] * np.float32(0.37) + np.float32(phase))
+    return pos
+
+
+def bits_digest(*arrays) -> str:
+    """SHA-256 (hex) of the arrays' bytes, one after another in C order."""
+    h = hashlib.sha256()
+    for x in arrays:
+        h.update(np.ascontiguousarray(np.asarray(x)).tobytes())
+    return h.hexdigest()
 
 
 def hits_from_ids(mask, tri, a, b, c, o, d):
