@@ -1519,26 +1519,36 @@ PARITY_FRAME_PINS = {
 }
 
 
-def hold_to_fixture(scene, bvh, cam, fixture, hits, shadow, frame, plain):
-    """One configuration's card answers held to a JAX fixture: each kernel's
-    primary hits (``hits``: name → HitRecord) under the crack rule and to
-    its plain version (``plain``: name → HitRecord) bit for bit where tri
-    agrees; K1's shadow mask under the occlusion rule, on the card's own
-    shadow rays, where both sides hit the same triangle; the frame under the
-    frame rule.  ``shadow`` and ``frame`` None: primary hits only (a fixture
-    without ``shadow_bits`` and ``frame_u8``).
+def frame_inputs(scene, cam):
+    """The real triangles (a, b, c) of ``scene`` and the primary rays of
+    ``cam`` (row-major), as numpy on the host."""
+    from unitysimpleraytracing_tpu_torch.core.camera import generate_rays
+
+    tris = scene.triangles
+    a, b, c = (x[:scene.count].cpu().numpy() for x in (tris.a, tris.b, tris.c))
+    o, d = (x.cpu().numpy() for x in generate_rays(cam))
+    return a, b, c, o, d
+
+
+def hold_to_fixture(a, b, c, o, d, fixture, hits, plain, shadow=None, shadow_rays=None,
+                    frame=None):
+    """One configuration's card answers held to a JAX fixture (``a``, ``b``,
+    ``c``: the real triangles; ``o``, ``d``: the card's primary rays in the
+    order of the hits, as numpy): each kernel's primary hits (``hits``: name
+    → HitRecord) under the crack rule and to its plain version (``plain``:
+    name → HitRecord) bit for bit where tri agrees; K1's shadow mask
+    (``shadow``, on the card's own ``shadow_rays`` = (origins, dirs,
+    origin bound)) under the occlusion rule where both sides hit the same
+    triangle; the frame (``frame``) under the frame rule.  ``shadow`` and
+    ``frame`` None: primary hits only (a fixture without ``shadow_bits`` or
+    ``frame_u8``).
 
     The fixture's shadow flags were traced on JAX's own shadow rays, whose
     origins differ in the last bits from the card's, so the occlusion rule
     judges both sides against float64 of the card's rays: an ``agrees`` of
     ``"ref"`` says JAX's flag is float64's on the card's ray."""
-    from unitysimpleraytracing_tpu_torch.core.camera import generate_rays
-    from unitysimpleraytracing_tpu_torch.pipeline import render
     from unitysimpleraytracing_tpu_torch.utils import parity
 
-    o, d = (x.cpu().numpy() for x in generate_rays(cam))
-    tris = scene.triangles
-    a, b, c = (x[:scene.count].cpu().numpy() for x in (tris.a, tris.b, tris.c))
     mask, tri, jshadow = parity.load_hit_fixture(fixture)
     ref = parity.hits_from_ids(mask, tri, a, b, c, o, d)
     out = {"hit_rays_jax": int(mask.sum())}
@@ -1551,25 +1561,26 @@ def hold_to_fixture(scene, bvh, cam, fixture, hits, shadow, frame, plain):
                      **{k: st[k] for k in ("divergent", "agrees", "f64_tri", "across_edge",
                                            "max_edge_distance", "grazing_t", "tri_ties",
                                            "tie_rays")}}
-    if shadow is None:
-        return out
-    with np.load(fixture) as z:
-        jframe = z["frame_u8"]
-    k1 = np_hits(hits["trace_bvh4"])
-    so, sd, bound = render.shadow_rays(scene, bvh, hits["trace_bvh4"], cam)
-    so, sd = so.cpu().numpy(), sd.cpu().numpy()
-    card_shadow = shadow.cpu().numpy()
-    both = np.flatnonzero((k1.t != MAX_FLOAT) & mask & (k1.tri == tri))
-    occ = parity.assert_occlusion_parity_at_scale(
-        card_shadow[both], jshadow[both], a, b, c, so[both], sd[both], float(bound))
-    out["shadow"] = {"occluded_rays": {"card": int(card_shadow.sum()), "jax": int(jshadow.sum())},
-                     "divergent": both[occ["divergent"]].tolist(), "agrees": occ["agrees"],
-                     "edge_distance": occ["edge_distance"],
-                     "near_threshold": both[occ["near_threshold"]].tolist()}
-    explained = (out["trace_bvh4"]["divergent"] + out["trace_bvh4"]["tie_rays"]
-                 + out["shadow"]["divergent"])
-    out["frame"] = parity.assert_frame_parity_at_scale(
-        parity.frame_to_uint8(frame.cpu().numpy()), jframe, explained)
+    explained = out["trace_bvh4"]["divergent"] + out["trace_bvh4"]["tie_rays"]
+    if shadow is not None:
+        k1 = np_hits(hits["trace_bvh4"])
+        so, sd, bound = shadow_rays
+        so, sd = so.cpu().numpy(), sd.cpu().numpy()
+        card_shadow = shadow.cpu().numpy()
+        both = np.flatnonzero((k1.t != MAX_FLOAT) & mask & (k1.tri == tri))
+        occ = parity.assert_occlusion_parity_at_scale(
+            card_shadow[both], jshadow[both], a, b, c, so[both], sd[both], float(bound))
+        out["shadow"] = {
+            "occluded_rays": {"card": int(card_shadow.sum()), "jax": int(jshadow.sum())},
+            "divergent": both[occ["divergent"]].tolist(), "agrees": occ["agrees"],
+            "edge_distance": occ["edge_distance"],
+            "near_threshold": both[occ["near_threshold"]].tolist()}
+        explained += out["shadow"]["divergent"]
+    if frame is not None:
+        with np.load(fixture) as z:
+            jframe = z["frame_u8"]
+        out["frame"] = parity.assert_frame_parity_at_scale(
+            parity.frame_to_uint8(frame.cpu().numpy()), jframe, explained)
     return out
 
 
@@ -1639,7 +1650,8 @@ def run_parity_frame(rt, smi, out_dir) -> None:
                                            "_jax.npz")
         report[name] = {
             "triangles": scene.count, "rays": cam.width * cam.height, "launches": launches,
-            **hold_to_fixture(scene, bvh, cam, fixture, hits, shadow, frame, plain),
+            **hold_to_fixture(*frame_inputs(scene, cam), fixture, hits, plain, shadow,
+                              render.shadow_rays(scene, bvh, hits["trace_bvh4"], cam), frame),
             "seconds": time.perf_counter() - t0}
         del frame, hits, shadow, plain
 
@@ -1674,7 +1686,7 @@ def run_parity_frame(rt, smi, out_dir) -> None:
     report["config4"] = {
         "triangles": scene.count, "rays": cam.width * cam.height, "launches": launches,
         "refit_sha256": refit_digest, "refit_bit_identical_to_jax": True, **digests,
-        **hold_to_fixture(deformed, bvh, cam, fixture, hits, None, None, plain),
+        **hold_to_fixture(*frame_inputs(deformed, cam), fixture, hits, plain),
         "seconds": time.perf_counter() - t0}
     del built, scene, bvh, cam, hits, plain, deformed
 
@@ -1701,6 +1713,172 @@ def run_parity_frame(rt, smi, out_dir) -> None:
             got = (report[name]["frame"]["beyond_1"] if key == "frame_beyond_1"
                    else report[name][key]["divergent"])
             assert got == want_rays, f"parity_frame {name} {key}: {got}, pinned {want_rays}"
+
+
+# What ``parity_large`` must find against the JAX package's fixtures
+# (``tests/golden/torch_{1m,config5_chunked,4m_chunked}_jax.npz``), measured
+# by the phase's first full run on an H100: per configuration, K1's divergent
+# primary rays (crack rule), its divergent shadow flags (occlusion rule) and
+# the pixels more than 1/255 off (frame rule; 4m_chunked holds no frame).
+PARITY_LARGE_PINS = {
+    "1m": {"trace_bvh4": [64180, 92992, 106308, 109476, 139177, 142748],
+           "shadow": [114694, 115724, 118851, 122922, 127972, 128483, 147429],
+           "frame_beyond_1": [64180, 92992, 106308, 109476, 122953, 139177, 142748, 153827]},
+    "config5_chunked": {"trace_bvh4": [52481, 107266, 115030],
+                        "shadow": [118190, 129992, 135584, 148859],
+                        "frame_beyond_1": [52481, 107266, 115030, 158493]},
+    # positions in the held subset of 126,720 rays (parity.frame_subset)
+    "4m_chunked": {"trace_bvh4": [52928, 64660, 67371],
+                   "shadow": [28101, 31899, 37249, 37730, 39654, 48809, 50726, 51206, 52648]},
+}
+# name -> (terrain_mesh kwargs, camera, every step-th row and column held, or
+# None for the whole frame): the CPU suite's configurations.
+_CAM_1M = dict(eye=(210.0, 170.0, 260.0), width=512, height=512)
+PARITY_LARGE_CONFIGS = {
+    "1m": (dict(res=725, size=300.0, amplitude=30.0, seed=0), _CAM_1M, None),
+    "config5_chunked": (dict(res=708, size=300.0, amplitude=30.0, seed=0), _CAM_1M, None),
+    "4m_chunked": (dict(res=1449, size=600.0, amplitude=60.0, seed=3),
+                   dict(eye=(420.0, 340.0, 520.0), width=1920, height=1056), 4),
+}
+
+
+def run_parity_large(rt, smi, out_dir) -> None:
+    """The card held to the JAX package's committed answers at the port's
+    three largest single-card sizes (the CPU suite
+    ``tests/test_torch_parity_large.py`` holds each file to the JAX package
+    bit for bit, and the port's plain versions to the same rules), each
+    configuration driven with K1's launch count set to 0 just before and
+    read just after:
+
+    - ``1m``: 1,048,352 triangles as one default (``sah_free``) tree,
+      512x512: ``render_frame(impl="cuda4", shadows=True)``, ``render_hits``
+      and ``render._shadow_mask`` (4 launches).  No K2: 1,048,352 padded to
+      1024 is one past the binary records' 20-bit ids;
+    - ``config5_chunked``: the bench's config-5 chunked row, 999,698
+      triangles in 7 ``"sah"`` chunks at 512x512: ``render_frame_chunked``,
+      ``render_hits_chunked`` and ``occluded_chunked`` on the frame's shadow
+      rays (4 launches a chunk);
+    - ``4m_chunked``: 4,193,408 triangles in 26 chunks at 1920x1056, the same
+      three calls; held on the fixture's rays, every 4th row and column of
+      the frame (126,720, ``parity.frame_subset``).
+
+    Each scene's mesh positions and each chunked scene's partition must have
+    the fixture's SHA-256s; the chunk tables' SHA-256 is compared with JAX's
+    and reported (free-order and sweep SAH trees may flip a split whose two
+    candidates cost the same within 1e-5, so the tables need not agree).
+    Primary hits go under the crack rule, K1's shadow mask under the
+    occlusion rule (on the card's shadow rays, where both sides hit
+    one triangle), the frames under the frame rule; K1 is held bit for bit
+    to ``plain4`` on the same rays, nearest-hit and any-hit.  Emits
+    ``parity_large``, writes it to ``parity_large.json`` under ``--out``,
+    then asserts the divergent lists of ``PARITY_LARGE_PINS``."""
+    from unitysimpleraytracing_tpu_torch.core.camera import generate_rays
+    from unitysimpleraytracing_tpu_torch.core.types import HitRecord
+    from unitysimpleraytracing_tpu_torch.ops import dispatch, trace_bvh4
+    from unitysimpleraytracing_tpu_torch.pipeline import chunked, render
+    from unitysimpleraytracing_tpu_torch.utils import parity
+
+    t_phase = time.perf_counter()
+    K1 = trace_bvh4.traverse_bvh4
+    tex = rt.solid_texture((0.8, 0.7, 0.6, 1.0))
+    bg = np.asarray([0.1, 0.1, 0.12], np.float32)
+    report = {}
+    for name, (mesh_kw, cam_kw, step) in PARITY_LARGE_CONFIGS.items():
+        t0 = time.perf_counter()
+        fixture = os.path.join(GOLDEN_DIR, f"torch_{name}_jax.npz")
+        with np.load(fixture) as z:
+            want = {k: str(z[k]) for k in ("mesh_sha256", "partition_sha256", "tables_sha256")
+                    if k in z}
+        mesh = rt.terrain_mesh(**mesh_kw)
+        assert parity.bits_digest(mesh.positions) == want["mesh_sha256"], (
+            f"parity_large {name}: this numpy makes another mesh than the fixture's")
+        scene = rt.build_scene(mesh)
+        del mesh
+        cam = rt.make_camera(target=(0.0, 0.0, 0.0), fov_deg=60.0, **cam_kw)
+        h, w = cam.height, cam.width
+        o, d = generate_rays(cam)
+        entry = {"triangles": scene.count, "rays": h * w}
+        if name == "1m":
+            tree = rt.build_bvh(scene)
+            torch.cuda.synchronize()
+            K1.launches = 0
+            frame = rt.render_frame(scene, tree, cam, tex, bg, impl="cuda4", shadows=True)
+            hits = rt.render_hits(scene, tree, cam, impl="cuda4")
+            shadow = render._shadow_mask(scene, tree, hits, "cuda4", cam)
+            torch.cuda.synchronize()
+            launches, want_launches = K1.launches, 4
+            plain = rt.render_hits(scene, tree, cam, impl="plain4")
+            plain_shadow = render._shadow_mask(scene, tree, hits, "plain4", cam)
+            so, sd, bound = render.shadow_rays(scene, tree, hits, cam)
+            del tree
+        else:
+            tree = rt.build_bvh_chunked(scene)
+            S = tree.num_chunks
+            entry["chunks"] = S
+            entry["partition_sha256"] = parity.partition_digest(SimpleNamespace(**{
+                f: getattr(tree.sscene, f).cpu() for f in parity.SHARDED_FIELDS}))
+            entry["tables_sha256"] = parity.bits_digest(tree.tables.cpu().numpy())
+            entry["partition_equals_jax"] = entry["partition_sha256"] == want["partition_sha256"]
+            assert entry["partition_equals_jax"], f"parity_large {name}: the partition differs"
+            entry["tables_equal_jax"] = entry["tables_sha256"] == want["tables_sha256"]
+
+            def occluded(so_, sd_, bound_, impl):
+                return dispatch._row_major(rt.occluded_chunked(
+                    tree, dispatch._tile_major(so_, h, w, 32).contiguous(),
+                    dispatch._tile_major(sd_, h, w, 32).contiguous(), impl=impl,
+                    origin_bound=bound_), h, w, 32)
+
+            torch.cuda.synchronize()
+            K1.launches = 0
+            frame = rt.render_frame_chunked(scene, tree, cam, tex, bg, impl="cuda4",
+                                            shadows=True)
+            hits = rt.render_hits_chunked(scene, tree, cam, impl="cuda4")
+            so, sd, bound = chunked._shadow_rays_chunked(tree, hits, o, d)
+            shadow = occluded(so, sd, bound, "cuda4") & hits.hit
+            torch.cuda.synchronize()
+            launches, want_launches = K1.launches, 4 * S
+            if step is None:
+                plain = rt.render_hits_chunked(scene, tree, cam, impl="plain4")
+                plain_shadow = occluded(so, sd, bound, "plain4") & hits.hit
+            else:  # K1 against plain4 on the fixture's rays alone
+                rows = torch.from_numpy(parity.frame_subset(w, h, step)).cuda()
+                hits = HitRecord(**{f: getattr(hits, f)[rows] for f in ("t", "tri", "u", "v")})
+                o, d, so, sd, shadow = (x[rows].contiguous() for x in (o, d, so, sd, shadow))
+                plain = rt.trace_chunked(tree, o, d, impl="plain4", route=False)
+                plain_shadow = rt.occluded_chunked(tree, so, sd, impl="plain4",
+                                                   origin_bound=bound) & hits.hit
+                assert bool(torch.isfinite(frame).all()), "the 4m chunked frame is not finite"
+                frame = None
+            del tree
+        assert launches == want_launches, f"parity_large {name} launches: {launches}"
+        assert torch.equal(shadow, plain_shadow), f"{name}: K1's shadow mask differs from plain4's"
+        tris = scene.triangles
+        a, b, c = (x[:scene.count].cpu().numpy() for x in (tris.a, tris.b, tris.c))
+        report[name] = {
+            **entry, "launches": {"trace_bvh4": launches}, "held_rays": int(o.shape[0]),
+            **hold_to_fixture(a, b, c, o.cpu().numpy(), d.cpu().numpy(), fixture,
+                              {"trace_bvh4": hits}, {"trace_bvh4": plain}, shadow,
+                              (so, sd, bound), frame),
+            "seconds": time.perf_counter() - t0}
+        del scene, frame, hits, shadow, plain, plain_shadow, o, d, so, sd
+        torch.cuda.empty_cache()
+
+    line = {"phase": "parity_large", "trees": "1m: default (sah_free); chunked: \"sah\"",
+            "references": {k: f"tests/golden/torch_{k}_jax.npz" for k in PARITY_LARGE_CONFIGS},
+            "rules": "as parity_frame: primary hits under assert_hit_parity_at_scale, K1's "
+                     "shadow mask under assert_occlusion_parity_at_scale on the card's "
+                     "shadow rays where both sides hit one triangle, frames under "
+                     "assert_frame_parity_at_scale; K1 bit for bit to plain4 where tri "
+                     "agrees, its shadow mask equal to plain4's",
+            **report, "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    print(json.dumps(line), flush=True)
+    with open(os.path.join(out_dir, "parity_large.json"), "w") as f:
+        json.dump(line, f, indent=1)
+    for name, pins in PARITY_LARGE_PINS.items():
+        for key, want_rays in pins.items():
+            got = (report[name]["frame"]["beyond_1"] if key == "frame_beyond_1"
+                   else report[name][key]["divergent"])
+            assert got == want_rays, f"parity_large {name} {key}: {got}, pinned {want_rays}"
 
 
 def write_obj(path: str, mesh) -> None:
@@ -1973,6 +2151,9 @@ def main() -> int:
 
     # ---- 3c. parity_frame: the shadowed and the animated frame against JAX
     run_parity_frame(rt, smi, out_dir)
+
+    # ---- 3d. parity_large: the 1M tree and the chunked scenes against JAX
+    run_parity_large(rt, smi, out_dir)
 
     # The shared-stack packet engine against the per-ray oracle: a 64x64
     # frame of the same scene, 4 packets of 1024 rays in lockstep.  A host

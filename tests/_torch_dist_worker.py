@@ -1,12 +1,15 @@
 """One rank of the port's multi-process tests (one gloo group), run by
-tests/test_torch_dist.py and tests/test_torch_dist_vs_jax.py (suites
-``cases`` and ``vs_jax``, on the CPU) and tests/test_torch_kernel_gpu.py
+tests/test_torch_dist.py, tests/test_torch_dist_vs_jax.py and
+tests/test_torch_parity_large.py (suites ``cases``, ``vs_jax`` and
+``vs_jax_large``, on the CPU) and tests/test_torch_kernel_gpu.py
 (``gpu_pair``, on cuda:0):
 
     python tests/_torch_dist_worker.py <suite> <rank> <world> <port> <out_dir>
 
 Joins a gloo group through `multihost.initialize` on 127.0.0.1:<port> (every
-collective times out after 60 s), runs every case of the suite once, and
+collective times out after the suite's limit: 60 s, 300 s for
+``vs_jax_large``, whose ranks each build a million-triangle scene on one
+thread between collectives), runs every case of the suite once, and
 writes this rank's rows of each result to ``<out_dir>/rank<rank>.npz`` as
 ``<case>|<field>`` arrays with the case's first row in ``<case>|start``.
 Imports nothing of JAX; inputs are made from seeds with numpy, as the tests
@@ -226,6 +229,21 @@ def suite_vs_jax(res: Results, rank: int) -> None:
         res.put("pipeline", 0, t=h.t, tri=h.tri, u=h.u, v=h.v, positions=positions)
 
 
+def suite_vs_jax_large(res: Results, rank: int) -> None:
+    """The three tp engines at (2, 4) on config 5 (benchmarks/dist_path.py's
+    999,698-triangle terrain and its 4,096 rays), for
+    tests/test_torch_parity_large.py."""
+    from unitysimpleraytracing_tpu_torch.benchmarks.dist_path import config5_rays, config5_scene
+
+    scene = config5_scene(708, CPU)
+    o, d = config5_rays(4096, CPU)
+    mesh = dist.make_mesh(2, 4, device=CPU)
+    ss = dist.partition_scene(scene, 4)
+    for name in ("sharded", "ring", "shuffle"):
+        res.engine(name, getattr(dist, f"render_hits_{name}"), ss, o, d, mesh,
+                   "dp" if name == "sharded" else ("dp", "tp"))
+
+
 def suite_gpu_pair(res: Results, rank: int) -> None:
     """Two ranks of one gloo group on cuda:0 (tests/test_torch_kernel_gpu.py):
     the ring and the shuffle at (1, 2) on tests/test_dist.py's scene, K1
@@ -247,8 +265,10 @@ def suite_gpu_pair(res: Results, rank: int) -> None:
                 host_reads=mesh.host_reads)
 
 
-SUITES = {"cases": (suite_cases, CPU), "vs_jax": (suite_vs_jax, CPU),
-          "gpu_pair": (suite_gpu_pair, "cuda:0")}
+# suite -> (its cases, device, seconds a collective may take)
+SUITES = {"cases": (suite_cases, CPU, 60), "vs_jax": (suite_vs_jax, CPU, 60),
+          "vs_jax_large": (suite_vs_jax_large, CPU, 300),
+          "gpu_pair": (suite_gpu_pair, "cuda:0", 60)}
 
 
 # ---- the launcher's side: start a group, gather what its ranks wrote ------
@@ -310,9 +330,9 @@ def assemble(ranks: list[dict], case: str) -> dict:
 def main() -> int:
     suite, rank, world, port, out_dir = sys.argv[1], *map(int, sys.argv[2:5]), sys.argv[5]
     torch.set_num_threads(1)
-    run, device = SUITES[suite]
+    run, device, limit_s = SUITES[suite]
     ok = multihost.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo", device=device,
-                              timeout=timedelta(seconds=60))
+                              timeout=timedelta(seconds=limit_s))
     assert ok and tdist.get_world_size() == world
     res = Results()
     try:

@@ -485,7 +485,9 @@ def test_committed_jax_fixtures_stay_under_three_megabytes():
     sizes = {n: os.path.getsize(os.path.join(golden, n))
              for n in os.listdir(golden) if n.startswith("torch_")}
     assert {"torch_config2_hits_jax.npz", "torch_config2_frame_jax.npz",
-            "torch_config3_jax.npz", "torch_config4_jax.npz"} <= set(sizes), sorted(sizes)
+            "torch_config3_jax.npz", "torch_config4_jax.npz", "torch_1m_jax.npz",
+            "torch_config5_chunked_jax.npz", "torch_4m_chunked_jax.npz",
+            "torch_config5_dist_jax.npz"} <= set(sizes), sorted(sizes)
     assert sum(sizes.values()) < 3_000_000, sizes
 
 

@@ -55,12 +55,13 @@ from unitysimpleraytracing_tpu_torch.utils.parity import (
 )
 
 from _torch_common import CPU, assert_same_bits, n_, t_
-from test_torch_parity_scale import _BVH_FIELDS, CONFIG2, CONFIG3
+from test_torch_parity_scale import _BVH_FIELDS, CONFIG2, CONFIG3, CONFIG_1M
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 FIXTURES = {name: os.path.join(GOLDEN, f"torch_{name}_jax.npz")
             for name in ("config2_frame", "config3", "config4")}
-CONFIGS = {"config2": CONFIG2, "config3": CONFIG3}
+# Config "1m" is held by test_torch_parity_large.py through the helpers below.
+CONFIGS = {"config2": CONFIG2, "config3": CONFIG3, "1m": CONFIG_1M}
 # chip_smoke.py's main-path texture and background.
 TEX = (0.8, 0.7, 0.6, 1.0)
 BG = np.asarray([0.1, 0.1, 0.12], np.float32)
@@ -227,7 +228,7 @@ def _jax(cfg_name):
 @functools.lru_cache(maxsize=None)
 def _port(cfg_name):
     """The port's answers on the CPU (``plain4``), as `_jax`'s, plus the
-    frame's primary rays and the real triangles."""
+    frame's primary rays, its own shadow rays and the real triangles."""
     mesh_kw, cam_kw = CONFIGS[cfg_name]
     scene = pt.build_scene(pt.terrain_mesh(**mesh_kw), device=CPU)
     bvh = pt.build_bvh(scene)
@@ -237,10 +238,12 @@ def _port(cfg_name):
     frame = pt.render_frame(scene, bvh, cam, pt.solid_texture(TEX, device=CPU), BG,
                             shadows=True)
     o, d = generate_rays(cam)
+    so, sd, ob = (n_(x) for x in prender.shadow_rays(scene, bvh, hits, cam))
     tris = scene.triangles
     return SimpleNamespace(
         scene=scene, bvh=bvh, cam=cam, hits=_hits_np(hits), shadow=n_(shadow),
         frame=frame_to_uint8(n_(frame)), torch_hits=hits, o=o, d=d, on=n_(o), dn=n_(d),
+        so=so, sd=sd, origin_bound=float(ob),
         a=n_(tris.a)[:scene.count], b=n_(tris.b)[:scene.count], c=n_(tris.c)[:scene.count])
 
 
@@ -277,26 +280,27 @@ def _shared_rule(cfg_name):
                                             s.origin_bound)
 
 
-@functools.lru_cache(maxsize=None)
-def _frame_rules(cfg_name):
-    """Each package's own frame under the frame rule.  The rays the rules
-    let differ: the primary rays the crack rule lists (divergent, and ids
+def frame_rules(j, p, pinned=()) -> SimpleNamespace:
+    """Each package's own frame under the frame rule (``j``, ``p``: the two
+    packages' answers, as `_jax` and `_port` give them; ``p`` also carries
+    the real triangles and the primary rays).  The rays the rules let
+    differ: the primary rays the crack rule lists (divergent, and ids
     flipped at an exact-t tie), and, where both sides hit the same triangle,
     the shadow rays whose flags differ and meet the occlusion rule with each
-    side on its own shadow ray."""
-    j, p = _jax(cfg_name), _port(cfg_name)
+    side on its own shadow ray.  ``pinned``: shadow rays where JAX's own
+    flag differs from float64 of its own ray at an edge no triangle shares
+    (asserted here, ray by ray)."""
     hit_st = assert_hit_parity_at_scale(p.hits, j.hits, p.a, p.b, p.c, p.on, p.dn)
-    po, pd, ob = (n_(x) for x in prender.shadow_rays(p.scene, p.bvh, p.torch_hits, p.cam))
-    assert float(ob) == j.origin_bound
+    assert p.origin_bound == j.origin_bound
     hit = p.hits.t != MAX_FLOAT
-    pinned = REFERENCE_FLIPS[cfg_name]
+    pinned = list(pinned)
     both = np.setdiff1d(
         np.flatnonzero(hit & (j.hits.t != MAX_FLOAT) & (p.hits.tri == j.hits.tri)), pinned)
     occ_st = assert_occlusion_parity_at_scale(
-        p.shadow[both], j.shadow[both], p.a, p.b, p.c, (po[both], j.so[both]),
-        (pd[both], j.sd[both]), j.origin_bound)
+        p.shadow[both], j.shadow[both], p.a, p.b, p.c, (p.so[both], j.so[both]),
+        (p.sd[both], j.sd[both]), j.origin_bound)
     for r in pinned:
-        mine = float64_occlusion(p.a, p.b, p.c, po[r], pd[r], j.origin_bound)
+        mine = float64_occlusion(p.a, p.b, p.c, p.so[r], p.sd[r], j.origin_bound)
         theirs = float64_occlusion(p.a, p.b, p.c, j.so[r], j.sd[r], j.origin_bound)
         assert p.shadow[r] == mine["occluded"] == theirs["occluded"] != j.shadow[r], r
         assert all(x["edge_distance"] <= x["edge_bound"] and not x["shared"]
@@ -305,6 +309,11 @@ def _frame_rules(cfg_name):
     frame_st = assert_frame_parity_at_scale(
         p.frame, j.frame, hit_st["divergent"] + hit_st["tie_rays"] + shadow_rays + pinned)
     return SimpleNamespace(hits=hit_st, occ=occ_st, shadow_rays=shadow_rays, frame=frame_st)
+
+
+@functools.lru_cache(maxsize=None)
+def _frame_rules(cfg_name):
+    return frame_rules(_jax(cfg_name), _port(cfg_name), REFERENCE_FLIPS[cfg_name])
 
 
 def _fixture_equals_jax(name, want):

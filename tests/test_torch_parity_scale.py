@@ -50,6 +50,10 @@ CONFIG2 = ({"res": 182, "size": 80.0, "amplitude": 9.0, "seed": 0},
 CONFIG3 = ({"res": 362, "size": 160.0, "amplitude": 20.0, "seed": 1},
            {"eye": (110.0, 90.0, 140.0), "target": (0.0, 0.0, 0.0), "width": 1920,
             "height": 1056, "fov_deg": 60.0})
+# chip_smoke.py's one-tree path at 1,048,352 triangles (main_path_1m).
+CONFIG_1M = ({"res": 725, "size": 300.0, "amplitude": 30.0, "seed": 0},
+             {"eye": (210.0, 170.0, 260.0), "target": (0.0, 0.0, 0.0), "width": 512,
+              "height": 512, "fov_deg": 60.0})
 _BVH_FIELDS = ("left", "right", "left_is_leaf", "right_is_leaf", "internal_parent",
                "leaf_parent", "range_first", "range_last", "split_axis", "node_aabb_min",
                "node_aabb_max", "sorted_tri", "depth")

@@ -45,6 +45,15 @@ phase; alone it prints the same JSON object.  Steps:
    against the fixed parity box) gathered across hosts equals the full
    ingest bit for bit.
 
+Steps 1 and 2 are also held to the JAX package's answers on the same rays
+(``tests/golden/torch_config5_dist_jax.npz``: JAX's single Karras tree and
+its three tp engines at (2, 4) on the 8-device CPU mesh, at 4,096 rays; its
+single tree on the first 65,536 rays of the 1,048,576-ray batch) under the
+crack rule (``utils/parity.assert_hit_parity_at_scale``): the single-tree
+trace and each engine's rows to JAX's single tree, each tp engine also to
+JAX's same engine, and the batch's head rows to JAX's; the divergent rays
+must be those of ``FIXTURE_PINS``.
+
 Every collective of the group times out after 120 s and every worker after
 ``limit_s``; a failed worker fails the run.
 """
@@ -71,6 +80,13 @@ PLAIN_AT = 4096    # the ray count at which K1 is also held to its plain version
 PAYLOAD = ("t", "tri", "u", "v", "uv", "normal")
 WORLD = 8          # the gloo group of steps 2-4: (dp, tp) = (2, 4) at 4 ranks a "host"
 LIMIT_S = 300.0    # a worker's wall-clock limit
+FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+                       "tests", "golden", "torch_config5_dist_jax.npz")
+# The divergent rays each comparison with the JAX fixture must find (the
+# card's rays are config5_rays', bit for bit the CPU suite's, and it finds
+# the CPU suite's lists): none at 4,096 rays; on the batch's head one crack,
+# 10,655, where the card equals float64 and JAX misses.
+FIXTURE_PINS = {"single": [], "sharded": [], "ring": [], "shuffle": [], "batch_head": [10655]}
 
 
 def config5_scene(res: int, device):
@@ -177,6 +193,29 @@ def hold(got: dict, ref, extra: dict | None = None) -> dict:
     return stats
 
 
+def hold_to_jax(rows: dict, answer: str, tris, n: int) -> dict:
+    """The first rows of a trace (numpy t, tri, u, v) held to the fixture's
+    ``answer`` (stored as mask and ids: t, u, v are float64 of JAX's
+    triangle on the ray, `parity.hits_from_ids`) under the crack rule, on
+    ``config5_rays(n)``; ``tris``: the real triangles.  Misses carry
+    shard-local ids in the engines, so tri is compared on hits."""
+    from types import SimpleNamespace
+
+    from unitysimpleraytracing_tpu_torch.utils import parity
+
+    mask, tri, _ = parity.load_hit_fixture(FIXTURE, answer + ".")
+    k = mask.shape[0]
+    o, d = (x.numpy()[:k] for x in config5_rays(n, "cpu"))
+    ref = parity.hits_from_ids(mask, tri, *tris, o, d)
+    t = rows["t"][:k]
+    got = SimpleNamespace(t=t, tri=np.where(t != parity.MAX_FLOAT, rows["tri"][:k], 0),
+                          u=rows["u"][:k], v=rows["v"][:k])
+    st = parity.assert_hit_parity_at_scale(got, ref, *tris, o, d)
+    return {"rays": k, "hits": int((t != parity.MAX_FLOAT).sum()), "hits_jax": int(mask.sum()),
+            **{f: st[f] for f in ("divergent", "agrees", "f64_tri", "across_edge",
+                                  "max_edge_distance", "grazing_t", "tie_rays")}}
+
+
 def bit_identical(got: dict, want: dict, what: str) -> bool:
     """Every field of ``got`` bit for bit equal to ``want``'s (tensors); raises
     where one differs."""
@@ -192,10 +231,10 @@ def bit_identical(got: dict, want: dict, what: str) -> bool:
 # --------------------------------------------------------------------------
 
 
-def world_one() -> tuple[dict, dict]:
+def world_one() -> tuple[dict, dict, tuple]:
     """Returns (the step's fields, {n_rays: (the single-tree hits the rows
     are held to, the world-1 all-gather engine's payload as numpy)} for
-    step 2)."""
+    step 2, the scene's real triangles as numpy)."""
     import torch.distributed as tdist
 
     import unitysimpleraytracing_tpu_torch as pt
@@ -215,6 +254,8 @@ def world_one() -> tuple[dict, dict]:
     }
     fields = {"backend": tdist.get_backend(), "triangles": int(scene.count), "by_rays": {}}
     refs = {}
+    tris = tuple(x[:scene.count].cpu().numpy()
+                 for x in (scene.triangles.a, scene.triangles.b, scene.triangles.c))
     for n in SIZES["rays"]:
         o, d = config5_rays(n, mesh.device)
         ref = dispatch.trace_rays(scene, bvh, o, d)  # auto: K1
@@ -224,6 +265,9 @@ def world_one() -> tuple[dict, dict]:
             row["single_trace_cuda4_bit_identical_to_plain4"] = bit_identical(
                 _fields(ref), _fields(plain), "trace_rays cuda4 vs plain4")
             ref = plain
+        row["jax_fixture"] = hold_to_jax(
+            {f: getattr(ref, f).cpu().numpy() for f in ("t", "tri", "u", "v")},
+            "single" if n == PLAIN_AT else "batch_head", tris, n)
         kept = None
         for name, fn in engines.items():
             K1.launches, mesh.host_reads = 0, 0
@@ -251,7 +295,7 @@ def world_one() -> tuple[dict, dict]:
             row[name]["overhead_ms"] = row[name]["ms"] - row["single_trace_ms"]
         fields["by_rays"][str(n)] = row
         refs[n] = (ref, kept)
-    return fields, refs
+    return fields, refs, tris
 
 
 # --------------------------------------------------------------------------
@@ -478,9 +522,9 @@ def spawn_workers(world: int, limit_s: float) -> list:
     return sorted(got, key=lambda r: r["rank"])
 
 
-def gloo_group(workers: list, refs: dict, world: int) -> dict:
-    """Assemble every case's rows from the ranks, hold them to step 1, and
-    summarise launches, exchange and times."""
+def gloo_group(workers: list, refs: dict, world: int, tris) -> dict:
+    """Assemble every case's rows from the ranks, hold them to step 1 and to
+    the JAX fixture, and summarise launches, exchange and times."""
     out = {"world": world, "backend": workers[0]["backend"],
            "initialized": all(w["initialized"] for w in workers),
            "setup_s_max": max(w["setup_s"] for w in workers), "cases": {}}
@@ -503,8 +547,11 @@ def gloo_group(workers: list, refs: dict, world: int) -> dict:
                 for f in blocks[min(blocks)]}
         if rows["t"].shape[0] != n:
             raise AssertionError(f"{key}: {rows['t'].shape[0]} rows assembled, not {n}")
+        answers = (["single"] + ([name] if name in FIXTURE_PINS else [])
+                   if n == PLAIN_AT else ["batch_head"])
         entry = {"held_to": "plain4" if n == PLAIN_AT else "cuda4",
                  "parity": hold(rows, ref, None if name == "dp_8x1" else sharded1),
+                 "jax_fixture": {k: hold_to_jax(rows, k, tris, n) for k in answers},
                  "k1_launches_per_rank": [w["cases"][key]["k1_launches"] for w in workers],
                  "host_reads_per_rank": [w["cases"][key]["host_reads"] for w in workers],
                  "ms_per_rank_median": [statistics.median(w["cases"][key]["ms"])
@@ -532,14 +579,14 @@ def run() -> dict:
     trace_bvh4._load_kernel()  # built here, before any worker starts
     fields = {"sizes": SIZES}
     try:
-        fields["world_1"], refs = world_one()
+        fields["world_1"], refs, tris = world_one()
     finally:
         if tdist.is_initialized():
             tdist.destroy_process_group()
     fields["world_1_seconds"] = time.perf_counter() - t0
     t1 = time.perf_counter()
     workers = spawn_workers(WORLD, LIMIT_S)
-    fields["gloo_8_ranks"] = gloo_group(workers, refs, WORLD)
+    fields["gloo_8_ranks"] = gloo_group(workers, refs, WORLD, tris)
     fields["gloo_8_ranks"]["timing"] = (
         f"{WORLD} processes sharing one card over gloo (host clock, median of "
         f"{SIZES['iters']} after a warm-up, barrier-aligned): not scaling")
@@ -558,6 +605,17 @@ def run() -> dict:
 
 
 def _check(fields: dict, workers: list, world: int) -> None:
+    held = [(f"world_1 {n}", row["jax_fixture"], "single" if n == str(PLAIN_AT) else "batch_head")
+            for n, row in fields["world_1"]["by_rays"].items()]
+    for key, case in fields["gloo_8_ranks"]["cases"].items():
+        held += [(f"{key} vs {k}", st, k) for k, st in case["jax_fixture"].items()]
+    for what, st, answer in held:
+        # every row set equals step 1's trace bit for bit, so each JAX answer
+        # is met with one divergent list
+        want = FIXTURE_PINS[answer]
+        if st["divergent"] != want:
+            raise AssertionError(f"{what}: divergent {st['divergent']} against the JAX "
+                                 f"fixture, pinned {want}")
     mh = fields["multihost"]
     if not all(mh["initialize_returned"]):
         raise AssertionError("multihost.initialize returned False in a multi-process group")

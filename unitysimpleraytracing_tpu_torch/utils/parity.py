@@ -501,9 +501,13 @@ def assert_occlusion_parity_at_scale(got, ref, a, b, c, o, d, origin_bound) -> d
     rows = np.flatnonzero(got != ref)
     agrees, edge_distance, near_threshold = [], [], []
     for r in rows:
-        right, why = [], {}
+        right, why, traced = [], {}, {}
         for side, (so, sd) in rays.items():
-            ray = _shadow_ray64(verts, verts64, so[r], sd[r], far, limit)
+            # both sides on the same rays: one float64 pass serves both
+            key = (id(so), id(sd))
+            if key not in traced:
+                traced[key] = _shadow_ray64(verts, verts64, so[r], sd[r], far, limit)
+            ray = traced[key]
             if bool(flags[side][r]) == bool(len(ray.blockers)):
                 right.append(side)
             else:
@@ -571,19 +575,20 @@ def encode_hits(mask, tri, shadow=None) -> dict:
     return out
 
 
-def load_hit_fixture(path):
+def load_hit_fixture(path, prefix: str = ""):
     """(hit mask, tri, occlusion mask) of a stored answer: ``mask_bits``
     (`np.packbits` of the mask over ``rays`` rays), ``hit_tri_delta`` (the
     hit rays' triangle ids in ray order, delta-coded, int32) and, where the
     file stores it, ``shadow_bits`` (None where it does not).  ``tri`` is 0
-    on a miss, as a HitRecord has it."""
+    on a miss, as a HitRecord has it.  A file that stores several answers
+    names each one's arrays ``<prefix><key>``."""
     with np.load(path) as z:
-        n = int(z["rays"])
-        mask = np.unpackbits(z["mask_bits"], count=n).astype(bool)
+        n = int(z[prefix + "rays"])
+        mask = np.unpackbits(z[prefix + "mask_bits"], count=n).astype(bool)
         tri = np.zeros(n, np.int32)
-        tri[mask] = np.cumsum(z["hit_tri_delta"], dtype=np.int64).astype(np.int32)
-        shadow = (np.unpackbits(z["shadow_bits"], count=n).astype(bool)
-                  if "shadow_bits" in z else None)
+        tri[mask] = np.cumsum(z[prefix + "hit_tri_delta"], dtype=np.int64).astype(np.int32)
+        shadow = (np.unpackbits(z[prefix + "shadow_bits"], count=n).astype(bool)
+                  if prefix + "shadow_bits" in z else None)
     return mask, tri, shadow
 
 
@@ -605,6 +610,33 @@ def bits_digest(*arrays) -> str:
     for x in arrays:
         h.update(np.ascontiguousarray(np.asarray(x)).tobytes())
     return h.hexdigest()
+
+
+# A partitioned scene's arrays, in the order `partition_digest` hashes them.
+SHARDED_FIELDS = ("tri_a", "tri_b", "tri_c", "a_uv", "b_uv", "c_uv", "a_normal", "b_normal",
+                  "c_normal", "aabb_min", "aabb_max", "morton", "global_tri", "counts",
+                  "range_min", "range_max")
+
+
+def partition_digest(sscene) -> str:
+    """`bits_digest` of a partitioned scene (either package's
+    ``ShardedScene``, its arrays on the host) over ``SHARDED_FIELDS``, every
+    integer array as int64: the port keeps Morton codes as int64 where the
+    JAX package has uint32, with the same values."""
+    def canonical(x):
+        x = np.asarray(x)
+        return x.astype(np.int64) if x.dtype.kind in "iu" else x
+
+    return bits_digest(*(canonical(getattr(sscene, f)) for f in SHARDED_FIELDS))
+
+
+def frame_subset(width: int, height: int, step: int) -> np.ndarray:
+    """Row-major indices of every ``step``-th pixel of every ``step``-th row
+    of a ``width`` x ``height`` frame, starting at pixel 0 (row 0 is the
+    bottom, as `generate_rays` orders the rays)."""
+    rows = np.arange(0, height, step, dtype=np.int64)
+    cols = np.arange(0, width, step, dtype=np.int64)
+    return (rows[:, None] * width + cols[None, :]).reshape(-1)
 
 
 def hits_from_ids(mask, tri, a, b, c, o, d):
