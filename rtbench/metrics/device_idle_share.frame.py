@@ -1,0 +1,6 @@
+"""Share of the traced slice in which no kernel or copy ran on the device, in frame cells."""
+from rtbench.readers import idle_percent
+
+
+def read(ctx):
+    return idle_percent(ctx, "frame")
