@@ -59,9 +59,11 @@ that each path went through its kernels, checks frames against the golden
 images, and times every stage with CUDA events.
 
 ``--out DIR`` is where the rendered PNG goes (default ``build/chip_smoke``
-under this checkout).  ``--profile`` adds a ``torch.profiler`` pass over three frames of the
-260,642-triangle path and over one default build of that scene (device busy
-share, kernels by device time); without that flag the passes are skipped.
+under this checkout).  ``--profile`` adds an A/B of the forms of one 2 M-row
+texel gather; without that flag it is skipped.  For where a frame, a build or
+a load spends its time, trace the benchmark instead: ``python3 rtbench/run.py
+--workload <cell> --seed <n> --seconds <s> --trace 1`` reads the program's
+own spans from a ``torch.profiler`` slice.
 
 It needs a CUDA device and fails without one; nothing here falls back to the
 CPU and any failed phase ends the run with a non-zero exit code.  Each phase
@@ -104,39 +106,6 @@ def np_hits(h) -> SimpleNamespace:
     return SimpleNamespace(
         **{k: getattr(h, k).detach().cpu().numpy() for k in ("t", "tri", "u", "v")}
     )
-
-
-def profile_frames(fn, frame_ms: float, frames: int = 3) -> dict:
-    """Device busy time and the heaviest kernels over ``frames`` calls.  The
-    idle share is stated against ``frame_ms``, the frame's time without the
-    profiler, whose own cost slows the host."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(frames):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy_ms == 0:
-        return {"device_time": "not measured (the profiler saw no device activity)"}
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    return {
-        "frames": frames, "wall_ms_per_frame": wall_ms / frames,
-        "device_busy_ms_per_frame": busy_ms / frames,
-        "device_idle_share": max(0.0, 1.0 - busy_ms / frames / frame_ms),
-        "device_idle_share_under_profiler": max(0.0, 1.0 - busy_ms / wall_ms),
-        "kernel_launches_per_frame": sum(e.count for e in kernels) / frames,
-        "top_kernels_ms_per_frame": [
-            [e.key[:80], e.self_device_time_total / 1e3 / frames, e.count // frames]
-            for e in top
-        ],
-    }
 
 
 def engine_of(module):
@@ -1235,7 +1204,7 @@ def run_probe_slice(smi, timer):
     ]
 
 
-def run_sah_path(rt, timer, smi, tex, bg, W, H, profile):
+def run_sah_path(rt, timer, smi, tex, bg, W, H):
     """The default build at full width: ``build_bvh(scene)`` with no
     ``builder`` (free-order sweep SAH), ``"sah"`` and ``"karras"`` on the
     260,642-triangle scene, the frame and both traversal kernels on each tree,
@@ -1366,9 +1335,6 @@ def run_sah_path(rt, timer, smi, tex, bg, W, H, profile):
     torch.cuda.reset_peak_memory_stats()
     rt.build_bvh(scene)
     build_peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    profiled = None
-    if profile:
-        profiled = profile_frames(lambda: rt.build_bvh(scene), build_turns[0][1], frames=1)
     del trees, default, scene
 
     # -- one "sah" build of the 1,048,352-triangle scene -----------------------------------
@@ -1394,7 +1360,6 @@ def run_sah_path(rt, timer, smi, tex, bg, W, H, profile):
          parity_contract=contract, kernels_vs_plain_on_the_default_tree=vs_plain,
          kernels_per_tree=kernels, kernel_ms_in_turns_cold_l2=kernel_turns,
          frame_ms_with_shadows_in_turns=frame_turns, one_sah_build_at_1m=one_m,
-         **({"profile_of_one_default_build": profiled} if profiled else {}),
          timing="CUDA events; builds median of 3 (2 at 1,048,352), kernels median of 7 "
                 "cold L2, frames median of 5, each after a warm-up",
          nvidia_smi=smi)
@@ -2056,7 +2021,8 @@ def main() -> int:
     ap.add_argument("--out", default=os.path.join(HERE, "build", "chip_smoke"),
                     help="directory for the rendered PNG")
     ap.add_argument("--profile", action="store_true",
-                    help="add the torch.profiler passes and the gather-form A/B")
+                    help="add the A/B of the texel gather's forms (for a profile of a "
+                         "frame, a build or a load: python3 rtbench/run.py --trace 1)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script runs on the card only",
@@ -2314,8 +2280,6 @@ def main() -> int:
     emit("compressed_records", triangles=mesh.num_triangles, nvidia_smi=smi, **k1c)
     del t4, t2, tables_of, rays_of, o, d, default_tree
     if args.profile:
-        emit("profile_260k_frame_with_shadows", nvidia_smi=smi, **profile_frames(
-            lambda: rt.render_frame(scene, bvh, cam, tex, bg, shadows=True), frame_ms))
         # Forms of one 2 M-row gather of 16-byte texel rows (why
         # sample_bilinear gathers the way it does), in turns within this call.
         flat = tex.data.reshape(-1, 4)
@@ -2412,7 +2376,7 @@ def main() -> int:
     probe_entries = run_probe_slice(smi, timer)
 
     # ---- 9. the default build (SAH builders) at full width ------------------
-    run_sah_path(rt, timer, smi, tex, bg, W, H, args.profile)
+    run_sah_path(rt, timer, smi, tex, bg, W, H)
 
     # ---- 9b. large scenes: chunked build, trace and frames ------------------
     run_chunked_path(rt, timer, smi, tex, bg, W, H, out_dir)

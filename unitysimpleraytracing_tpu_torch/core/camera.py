@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from unitysimpleraytracing_tpu_torch.utils.device import resolve_device
+from unitysimpleraytracing_tpu_torch.utils.profiling import span
 
 
 @dataclass(eq=False)
@@ -64,15 +65,16 @@ def make_camera(
 ) -> Camera:
     """``device=None`` is the card (raises without one); tests pass "cpu"."""
     device = resolve_device(device)
-    return Camera(
-        cam_to_world=torch.from_numpy(look_at(eye, target, up)).to(device),
-        tan_half_fov=torch.tensor(
-            math.tan(math.radians(fov_deg) / 2), dtype=torch.float32, device=device
-        ),
-        near=torch.tensor(near, dtype=torch.float32, device=device),
-        width=width,
-        height=height,
-    )
+    with span("camera.make"):
+        return Camera(
+            cam_to_world=torch.from_numpy(look_at(eye, target, up)).to(device),
+            tan_half_fov=torch.tensor(
+                math.tan(math.radians(fov_deg) / 2), dtype=torch.float32, device=device
+            ),
+            near=torch.tensor(near, dtype=torch.float32, device=device),
+            width=width,
+            height=height,
+        )
 
 
 def stack_cameras(cams) -> Camera:

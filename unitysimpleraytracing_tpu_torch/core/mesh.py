@@ -19,6 +19,7 @@ from unitysimpleraytracing_tpu_torch import constants as C
 from unitysimpleraytracing_tpu_torch.core import morton
 from unitysimpleraytracing_tpu_torch.core.types import Scene, Triangles
 from unitysimpleraytracing_tpu_torch.utils.device import resolve_device
+from unitysimpleraytracing_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -337,35 +338,41 @@ def build_scene(
     cap = C.pad_count(n, pad_multiple)
 
     def pad(arr):
-        out = np.zeros((cap,) + arr.shape[1:], arr.dtype)
-        out[:n] = arr
-        return torch.from_numpy(out).to(device)
+        with span("ingest.pad"):
+            out = np.zeros((cap,) + arr.shape[1:], arr.dtype)
+            out[:n] = arr
+        with span("ingest.upload"):
+            return torch.from_numpy(out).to(device)
 
     pos = pad(mesh.positions)
     uv = pad(mesh.uvs)
     nrm = pad(mesh.normals)
 
-    if scene_bound is None:
-        lo = float(mesh.positions.min()) - 1.0
-        hi = float(mesh.positions.max()) + 1.0
-    else:
-        lo, hi = -scene_bound, scene_bound
-    scene_min = torch.full((3,), lo, dtype=torch.float32, device=device)
-    scene_max = torch.full((3,), hi, dtype=torch.float32, device=device)
+    with span("ingest.pad"):
+        if scene_bound is None:
+            lo = float(mesh.positions.min()) - 1.0
+            hi = float(mesh.positions.max()) + 1.0
+        else:
+            lo, hi = -scene_bound, scene_bound
+    with span("ingest.upload"):
+        scene_min = torch.full((3,), lo, dtype=torch.float32, device=device)
+        scene_max = torch.full((3,), hi, dtype=torch.float32, device=device)
 
-    with torch.no_grad():
+    with torch.no_grad(), span("ingest.keys"):
         amin, amax, codes, tri_index = _derive_scene_arrays(
             pos, n, scene_min, scene_max
         )
     # Corner slices are made contiguous once here: every later stage (table
     # pack, oracle traversal, shading) gathers rows from them.
-    tris = Triangles(
-        a=pos[:, 0].contiguous(), b=pos[:, 1].contiguous(), c=pos[:, 2].contiguous(),
-        a_uv=uv[:, 0].contiguous(), b_uv=uv[:, 1].contiguous(), c_uv=uv[:, 2].contiguous(),
-        a_normal=nrm[:, 0].contiguous(), b_normal=nrm[:, 1].contiguous(),
-        c_normal=nrm[:, 2].contiguous(),
-        count=n,
-    )
+    with span("ingest.upload"):
+        tris = Triangles(
+            a=pos[:, 0].contiguous(), b=pos[:, 1].contiguous(), c=pos[:, 2].contiguous(),
+            a_uv=uv[:, 0].contiguous(), b_uv=uv[:, 1].contiguous(),
+            c_uv=uv[:, 2].contiguous(),
+            a_normal=nrm[:, 0].contiguous(), b_normal=nrm[:, 1].contiguous(),
+            c_normal=nrm[:, 2].contiguous(),
+            count=n,
+        )
     return Scene(
         triangles=tris,
         aabb_min=amin,

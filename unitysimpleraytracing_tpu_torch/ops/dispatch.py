@@ -26,6 +26,7 @@ import torch
 
 from unitysimpleraytracing_tpu_torch.core.types import Bvh, HitRecord, Scene
 from unitysimpleraytracing_tpu_torch.ops import trace, trace_bvh2, trace_bvh4, trace_packet
+from unitysimpleraytracing_tpu_torch.utils.profiling import span
 
 # Single-tree envelope: the record metas hold triangle ids and record ids in
 # 21 bits (ops/trace_bvh4).
@@ -226,21 +227,19 @@ def camera_trace(
     order."""
     from unitysimpleraytracing_tpu_torch.core.camera import generate_rays
 
-    origins, dirs = generate_rays(cam)
     h, w = cam.height, cam.width
-    if h % 32 == 0 and w % 32 == 0:
-        hits = trace_rays(
-            scene,
-            bvh,
-            _tile_major(origins, h, w, 32),
-            _tile_major(dirs, h, w, 32),
-            impl=impl,
-            tables=tables,
-        )
+    tiled = h % 32 == 0 and w % 32 == 0
+    with span("render.rays"):
+        origins, dirs = generate_rays(cam)
+        if tiled:
+            origins, dirs = _tile_major(origins, h, w, 32), _tile_major(dirs, h, w, 32)
+    with span("render.primary"):
+        hits = trace_rays(scene, bvh, origins, dirs, impl=impl, tables=tables)
+        if not tiled:
+            return hits
         return HitRecord(
             t=_row_major(hits.t, h, w, 32),
             tri=_row_major(hits.tri, h, w, 32),
             u=_row_major(hits.u, h, w, 32),
             v=_row_major(hits.v, h, w, 32),
         )
-    return trace_rays(scene, bvh, origins, dirs, impl=impl, tables=tables)

@@ -38,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from unitysimpleraytracing_tpu_torch.core.types import Bvh
+from unitysimpleraytracing_tpu_torch.utils.profiling import span
 
 _INT32_MAX = 2**31 - 1
 _NUM_ADJ = 33  # every value delta(k, k+1) can take: -1 .. 31
@@ -147,9 +148,10 @@ def build_topology(codes: torch.Tensor, count: int, with_parents: bool = True):
     adj_right = torch.where(l_pos < n - 1, (pk_nxt & 63) - 2, NEG)
     name = torch.where(adj_left > adj_right, f_pos, l_pos)
     name = torch.where((f_pos == 0) & (l_pos == n - 1), 0, name)
-    valid_k = ids <= n - 2
-    # Scatter with unique in-range targets, written as masked index
-    # assignment: every valid k names a different node.
+    # Scatter with unique in-range targets: every valid k names a different
+    # node.
+    with span("readback.topology_split"):
+        valid_k = (ids <= n - 2).nonzero(as_tuple=True)[0]
     rmq = torch.zeros(cap, dtype=torch.int32, device=dev)
     rmq[name[valid_k].to(torch.int64)] = (((a + 1) << 25) | ids)[valid_k]
     split = rmq & ((1 << 25) - 1)
@@ -190,7 +192,8 @@ def build_topology(codes: torch.Tensor, count: int, with_parents: bool = True):
 
 def _scatter_ids(target: torch.Tensor, index: torch.Tensor, mask: torch.Tensor):
     """target[index[i]] = i where mask[i] (unique in-range indices), in place."""
-    sel = mask.nonzero(as_tuple=True)[0]
+    with span("readback.parent_links"):
+        sel = mask.nonzero(as_tuple=True)[0]
     target[index[sel].to(torch.int64)] = sel.to(target.dtype)
 
 
@@ -207,6 +210,12 @@ def parent_links(left, right, left_is_leaf, right_is_leaf, valid):
     return internal_parent, leaf_parent
 
 
+def _chains_left(jump: torch.Tensor) -> bool:
+    """The pointer chase's loop condition: one device→host read."""
+    with span("readback.depths"):
+        return bool(torch.any(jump >= 0))
+
+
 def compute_depths(internal_parent: torch.Tensor, count: int) -> torch.Tensor:
     """Depth of every internal node from the root (node 0) by POINTER DOUBLING.
 
@@ -221,7 +230,7 @@ def compute_depths(internal_parent: torch.Tensor, count: int) -> torch.Tensor:
     valid = ids < count - 1
     jump = torch.where(valid, internal_parent, -1)
     dist = (jump >= 0).to(torch.int32)
-    while bool(torch.any(jump >= 0)):
+    while _chains_left(jump):
         alive = jump >= 0
         j = jump.clamp(0, cap - 1).to(torch.int64)
         dist = torch.where(alive, dist + dist[j], dist)
@@ -296,31 +305,33 @@ def build_bvh_from_sorted(
     per-node depth array — validation-only data nothing in the render path
     reads; -1 filled.  Pass True — or use :func:`attach_diagnostics` later —
     where validation wants them."""
-    (
-        left,
-        right,
-        left_is_leaf,
-        right_is_leaf,
-        internal_parent,
-        leaf_parent,
-        range_first,
-        range_last,
-        split_axis,
-    ) = build_topology(codes, count, with_parents=diagnostics)
-    if diagnostics:
-        depth = compute_depths(internal_parent, count)
-    else:
-        depth = torch.full(
-            (codes.shape[0],), -1, dtype=torch.int32, device=codes.device
+    with span("build.topology"):
+        (
+            left,
+            right,
+            left_is_leaf,
+            right_is_leaf,
+            internal_parent,
+            leaf_parent,
+            range_first,
+            range_last,
+            split_axis,
+        ) = build_topology(codes, count, with_parents=diagnostics)
+        if diagnostics:
+            depth = compute_depths(internal_parent, count)
+        else:
+            depth = torch.full(
+                (codes.shape[0],), -1, dtype=torch.int32, device=codes.device
+            )
+    with span("build.refit"):
+        node_min, node_max = refit(
+            range_first,
+            range_last,
+            sorted_tri,
+            tri_aabb_min,
+            tri_aabb_max,
+            count,
         )
-    node_min, node_max = refit(
-        range_first,
-        range_last,
-        sorted_tri,
-        tri_aabb_min,
-        tri_aabb_max,
-        count,
-    )
     return Bvh(
         left=left,
         right=right,

@@ -61,6 +61,7 @@ import torch
 
 from unitysimpleraytracing_tpu_torch.core.types import Bvh
 from unitysimpleraytracing_tpu_torch.ops import lbvh
+from unitysimpleraytracing_tpu_torch.utils.profiling import span
 
 _LOW32 = 0xFFFFFFFF
 _SIGN32 = 0x80000000
@@ -185,6 +186,13 @@ def _finish(o_f, o_l, o_s, o_ax, with_parents: bool):
     )
 
 
+def _levels_left(act: torch.Tensor) -> bool:
+    """The level loop's condition, whether any segment is still to split: one
+    device→host read a level."""
+    with span("readback.sah_level"):
+        return bool(act.any())
+
+
 def _initial_state(cap: int, n: int, dev):
     ids = torch.arange(cap, dtype=torch.int64, device=dev)
     in_scene = ids < n
@@ -240,7 +248,7 @@ def build_topology_sah(
     ids, f, l, nid, act, out = _initial_state(cap, n, dev)
 
     level = 0
-    while bool(act.any()):
+    while _levels_left(act):
         best, P, S1 = _sweep(keys, ids, f, l, act)
         if level >= max_sah_depth:  # median fallback bounds the loop
             best = (f + l) >> 1
@@ -301,7 +309,7 @@ def build_topology_sah_free(
     perm = init_order.to(torch.int64)
 
     level = 0
-    while bool(act.any()):
+    while _levels_left(act):
         # Segment centroid bounds → largest-extent axis per segment.
         C = torch.full((6, cap), float("-inf"), dtype=torch.float32, device=dev)
         C.scatter_reduce_(1, f[None, :].expand(6, -1), c6_g[:, perm], "amax",
@@ -331,15 +339,17 @@ def _assemble(topology, sorted_tri, tri_aabb_min, tri_aabb_max, count: int,
         left, right, left_is_leaf, right_is_leaf,
         internal_parent, leaf_parent, range_first, range_last, split_axis,
     ) = topology
-    if diagnostics:
-        depth = lbvh.compute_depths(internal_parent, count)
-    else:
-        depth = torch.full(
-            (sorted_tri.shape[0],), -1, dtype=torch.int32, device=sorted_tri.device
+    with span("build.assemble"):
+        if diagnostics:
+            depth = lbvh.compute_depths(internal_parent, count)
+        else:
+            depth = torch.full(
+                (sorted_tri.shape[0],), -1, dtype=torch.int32, device=sorted_tri.device
+            )
+    with span("build.refit"):
+        node_min, node_max = lbvh.refit(
+            range_first, range_last, sorted_tri, tri_aabb_min, tri_aabb_max, count
         )
-    node_min, node_max = lbvh.refit(
-        range_first, range_last, sorted_tri, tri_aabb_min, tri_aabb_max, count
-    )
     return Bvh(
         left=left,
         right=right,
@@ -374,10 +384,11 @@ def build_bvh_sah_free(
     the build pipeline is fine — the top levels re-sort it immediately).
     ``static_count``, as in the JAX package, is what the returned
     ``Bvh.count`` says (default: ``count``)."""
-    topology, sorted_tri = build_topology_sah_free(
-        init_order, tri_aabb_min, tri_aabb_max, count,
-        with_parents=diagnostics, max_sah_depth=max_sah_depth,
-    )
+    with span("build.sah"):
+        topology, sorted_tri = build_topology_sah_free(
+            init_order, tri_aabb_min, tri_aabb_max, count,
+            with_parents=diagnostics, max_sah_depth=max_sah_depth,
+        )
     return _assemble(topology, sorted_tri, tri_aabb_min, tri_aabb_max, count,
                      static_count, diagnostics)
 
@@ -394,10 +405,11 @@ def build_bvh_sah_from_sorted(
 ) -> Bvh:
     """Sweep-SAH Bvh from a Morton-sorted triangle order (the ``builder="sah"``
     analog of lbvh.build_bvh_from_sorted; no unique keys needed)."""
-    topology = build_topology_sah(
-        sorted_tri, tri_aabb_min, tri_aabb_max, count,
-        with_parents=diagnostics, max_sah_depth=max_sah_depth,
-    )
+    with span("build.sah"):
+        topology = build_topology_sah(
+            sorted_tri, tri_aabb_min, tri_aabb_max, count,
+            with_parents=diagnostics, max_sah_depth=max_sah_depth,
+        )
     return _assemble(topology, sorted_tri, tri_aabb_min, tri_aabb_max, count,
                      static_count, diagnostics)
 

@@ -71,6 +71,7 @@ from unitysimpleraytracing_tpu_torch import constants as C
 from unitysimpleraytracing_tpu_torch.core.types import Bvh, HitRecord, Scene
 from unitysimpleraytracing_tpu_torch.ops import lbvh
 from unitysimpleraytracing_tpu_torch.utils import kernel_build
+from unitysimpleraytracing_tpu_torch.utils.profiling import span
 
 _SLOTS4 = 64
 _SLOTS4C = 52  # compressed: 12 bf16-pair box slots, 4 metas, 36 vertex slots
@@ -114,7 +115,8 @@ def _node_mask_cached(bvh: Bvh):
     if ent is not None and ent[0]() is bvh.left:
         return ent[1], ent[2], ent[3]
     mask, new_id = _node_mask_compute(bvh)
-    count = int(mask.sum())
+    with span("readback.node_mask"):
+        count = int(mask.sum())
     ref = weakref.ref(bvh.left, lambda _r, _k=key: _TOPO_CACHE.pop(_k, None))
     _TOPO_CACHE[key] = (ref, mask, new_id, count, {})
     return mask, new_id, count
@@ -194,7 +196,9 @@ def _pack_plan4(bvh: Bvh, mask, new_id, cap4: int):
     # Compact mask rows to their new ids (record-table row r reads BVH2 node
     # rows[r]); padding rows replicate node 0's entries — never referenced.
     rows = torch.zeros((cap4,), dtype=torch.int64, device=dev)
-    rows[new_id64[mask]] = mask.nonzero(as_tuple=True)[0]
+    with span("readback.plan_rows"):
+        kept = mask.nonzero(as_tuple=True)[0]
+    rows[new_id64[kept]] = kept
     return srcs[rows], metas[rows]  # (cap4, 4) each
 
 
@@ -338,8 +342,9 @@ def prepare_tables4(scene: Scene, bvh: Bvh) -> torch.Tensor:
     ent = _TABLE4_CACHE.get(key)
     if ent is not None and ent[0]() is bvh and ent[1]() is scene:
         return ent[2]
-    mask, new_id, cap4 = _node_mask_cached(bvh)
-    tables = pack_tables4(scene, bvh, cap4=max(cap4, 1), mask=mask, new_id=new_id)
+    with span("tables.pack"):
+        mask, new_id, cap4 = _node_mask_cached(bvh)
+        tables = pack_tables4(scene, bvh, cap4=max(cap4, 1), mask=mask, new_id=new_id)
     bvh_ref = weakref.ref(bvh, lambda _r, _k=key: _TABLE4_CACHE.pop(_k, None))
     _TABLE4_CACHE[key] = (bvh_ref, weakref.ref(scene), tables)
     return tables

@@ -15,12 +15,14 @@ import torch
 from unitysimpleraytracing_tpu_torch import constants as C
 from unitysimpleraytracing_tpu_torch.core.types import Bvh, Scene
 from unitysimpleraytracing_tpu_torch.ops import lbvh, sah, sort, unique
+from unitysimpleraytracing_tpu_torch.utils.profiling import span
 
 BUILDERS = ("karras", "sah", "sah_free")
 
 
 def _build(scene: Scene, sort_impl: str, diagnostics: bool, builder: str) -> Bvh:
-    keys, sorted_tri = sort.sort_key_val(scene.morton, scene.tri_index, impl=sort_impl)
+    with span("build.sort"):
+        keys, sorted_tri = sort.sort_key_val(scene.morton, scene.tri_index, impl=sort_impl)
     if builder == "sah":
         # Sweep SAH over the Morton order (ops/sah.py): better splits, same
         # hit contract; needs no unique keys, so distribute_keys is skipped.
@@ -36,7 +38,8 @@ def _build(scene: Scene, sort_impl: str, diagnostics: bool, builder: str) -> Bvh
             sorted_tri, scene.aabb_min, scene.aabb_max, scene.count,
             diagnostics=diagnostics,
         )
-    keys = unique.distribute_keys(keys, scene.count)
+    with span("build.unique"):
+        keys = unique.distribute_keys(keys, scene.count)
     return lbvh.build_bvh_from_sorted(
         keys, sorted_tri, scene.aabb_min, scene.aabb_max, scene.count,
         diagnostics=diagnostics,

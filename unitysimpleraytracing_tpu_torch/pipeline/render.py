@@ -25,6 +25,7 @@ from unitysimpleraytracing_tpu_torch.ops.dispatch import (
     trace_rays,
 )
 from unitysimpleraytracing_tpu_torch.pipeline.build import deform_scene, refit_bvh
+from unitysimpleraytracing_tpu_torch.utils.profiling import span
 
 
 def _prepared(scene: Scene, bvh: Bvh, impl: str):
@@ -110,19 +111,20 @@ def _shadow_mask(scene, bvh, hits, impl, cam, tables=None, substitute=True):
     """Occlusion of every hit pixel toward the light.  Shadow rays inherit the
     primary rays' spatial coherence, so they are reordered into the same
     32×32 tile-major order before tracing."""
-    origins, dirs, origin_bound = shadow_rays(scene, bvh, hits, cam, substitute)
     h, w_ = cam.height, cam.width
-    if h % 32 == 0 and w_ % 32 == 0:
+    tiled = h % 32 == 0 and w_ % 32 == 0
+    with span("render.shadow_rays"):
+        origins, dirs, origin_bound = shadow_rays(scene, bvh, hits, cam, substitute)
+        if tiled:
+            origins, dirs = _tile_major(origins, h, w_, 32), _tile_major(dirs, h, w_, 32)
+    with span("render.shadow"):
         occ = occluded(
-            scene, bvh,
-            _tile_major(origins, h, w_, 32), _tile_major(dirs, h, w_, 32),
-            impl=impl, tables=tables, origin_bound=origin_bound,
+            scene, bvh, origins, dirs, impl=impl, tables=tables,
+            origin_bound=origin_bound,
         )
-        return _row_major(occ, h, w_, 32) & hits.hit
-    return occluded(
-        scene, bvh, origins, dirs, impl=impl, tables=tables,
-        origin_bound=origin_bound,
-    ) & hits.hit
+        if tiled:
+            occ = _row_major(occ, h, w_, 32)
+        return occ & hits.hit
 
 
 def _render_rgba_impl(
@@ -134,7 +136,8 @@ def _render_rgba_impl(
         if shadows
         else None
     )
-    rgba = trace.shade(scene, tex, hits, shadow=shadow)
+    with span("render.shade"):
+        rgba = trace.shade(scene, tex, hits, shadow=shadow)
     return rgba.reshape(cam.height, cam.width, 4)
 
 
@@ -169,14 +172,15 @@ def render_frame(
     pass toward the fixed light (capability beyond the reference).
     ``shadow_substitute=False`` keeps the junk miss-pixel shadow rays —
     identical output, A/B only."""
-    impl = _resolve(bvh, cam, impl)
-    traced = _render_rgba_impl(
-        scene, bvh, cam, tex, _prepared(scene, bvh, impl), impl,
-        shadows, shadow_substitute,
-    )
-    bg = torch.as_tensor(background, dtype=torch.float32, device=traced.device)
-    bg = bg.expand(cam.height, cam.width, 3)
-    return trace.compose(bg, traced)
+    with span("render.frame"):
+        impl = _resolve(bvh, cam, impl)
+        traced = _render_rgba_impl(
+            scene, bvh, cam, tex, _prepared(scene, bvh, impl), impl,
+            shadows, shadow_substitute,
+        )
+        with span("render.compose"):
+            bg = torch.as_tensor(background, dtype=torch.float32, device=traced.device)
+            return trace.compose(bg.expand(cam.height, cam.width, 3), traced)
 
 
 @torch.no_grad()
@@ -256,23 +260,28 @@ def make_animated_renderer(scene: Scene, bvh: Bvh, cam: Camera, impl: str = "aut
     impl = _resolve(bvh, cam, impl)
     plan = None
     if impl in ("cuda4", "plain4"):
-        mask, new_id, cap4 = trace_bvh4._node_mask_cached(bvh)
-        cap4 = max(cap4, 1)
-        # Same meta-packing guards as pack_tables4 (idx + leaf<<21 + ax<<22).
-        if cap4 >= (1 << 21) or bvh.capacity >= (1 << 21):
-            raise ValueError("meta packing needs node and triangle ids < 2^21")
-        plan = trace_bvh4._pack_plan4(bvh, mask, new_id, cap4)
+        with span("tables.pack"):
+            mask, new_id, cap4 = trace_bvh4._node_mask_cached(bvh)
+            cap4 = max(cap4, 1)
+            # Same meta-packing guards as pack_tables4 (idx + leaf<<21 + ax<<22).
+            if cap4 >= (1 << 21) or bvh.capacity >= (1 << 21):
+                raise ValueError("meta packing needs node and triangle ids < 2^21")
+            plan = trace_bvh4._pack_plan4(bvh, mask, new_id, cap4)
 
     @torch.no_grad()
     def frame(positions: torch.Tensor) -> HitRecord:
-        s2 = deform_scene(scene, positions)
-        b2 = refit_bvh(s2, bvh)
-        tables = None
-        if plan is not None:
-            tables = trace_bvh4._apply_plan4(s2, b2, *plan)
-        elif impl in ("cuda2", "plain2"):
-            tables = trace_bvh2.pack_tables(s2, b2)
-        return camera_trace(s2, b2, cam, impl=impl, tables=tables)
+        with span("anim.deform"):
+            s2 = deform_scene(scene, positions)
+        with span("anim.refit"):
+            b2 = refit_bvh(s2, bvh)
+        with span("anim.tables"):
+            tables = None
+            if plan is not None:
+                tables = trace_bvh4._apply_plan4(s2, b2, *plan)
+            elif impl in ("cuda2", "plain2"):
+                tables = trace_bvh2.pack_tables(s2, b2)
+        with span("anim.trace"):
+            return camera_trace(s2, b2, cam, impl=impl, tables=tables)
 
     return frame
 

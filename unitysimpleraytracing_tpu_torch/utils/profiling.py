@@ -16,6 +16,11 @@ one.
 - `Profiler`, `OpStats`: named operator timings with bytes/s and op/s against
   the card's peaks.  `device_trace` wraps ``torch.profiler`` and writes a
   Chrome trace.
+- `span`: the program's own ranges (``render.primary``, ``build.sah``,
+  ``readback.sah_level``, ...) at each stage boundary.  While a
+  ``torch.profiler`` records, each is a ``record_function`` range on the
+  trace's clock, beside the kernels and copies it launched; otherwise it is
+  one shared no-op context.  ``PERF.md`` lists every span and what reads it.
 - `sort_bytes`, `build_bytes`, `traverse_bytes`, `roofline_ms`: what the hot
   operators must move and compute, for a roofline bound; `loaded_bytes`,
   `warp_steps` and `warp_lane_efficiency`: what a traversal kernel asks of the
@@ -73,6 +78,21 @@ LOADED_BYTES_PER_POP_C = 4 * 16
 LOADED_BYTES_PER_LEAF_TEST = 9 * 4
 LOADED_BYTES_PER_POP2 = 4 * 16
 LOADED_BYTES_PER_LEAF_RECORD2 = 4 * 16
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A range named ``name`` around one stage of the program, recorded only
+    while a ``torch.profiler`` is recording on this thread: then a
+    ``torch.profiler.record_function`` range (a ``user_annotation`` event in
+    the trace, nested in whatever range encloses it), else the shared no-op
+    context, with no call into the profiler.  Records no CUDA event, so a
+    traced slice holds the same launches as an untraced one."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 def _first_tensor(x):
