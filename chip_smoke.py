@@ -733,10 +733,13 @@ def run_dynamic_path(rt, timer, scene, bvh, cam, tex, bg, W, H, main_image):
     what they gave is then held against per-frame and unfused references and
     timed.  Returns (launch counts of the drive, the phase's fields)."""
     from unitysimpleraytracing_tpu_torch import cli
-    from unitysimpleraytracing_tpu_torch.ops import dispatch, trace_bvh2, trace_bvh4
+    from unitysimpleraytracing_tpu_torch.ops import (
+        dispatch, lbvh, refit_bvh4, trace_bvh2, trace_bvh4,
+    )
     from unitysimpleraytracing_tpu_torch.utils import parity
 
     K1, K2 = trace_bvh4.traverse_bvh4, trace_bvh2.traverse_bvh2
+    refit_k, records_k = refit_bvh4.refit_nodes, refit_bvh4.write_records
     # The group the CLI's --orbit-batch makes at this resolution.
     F = max(1, (1 << 22) // (W * H))
     assert F == 2
@@ -762,17 +765,19 @@ def run_dynamic_path(rt, timer, scene, bvh, cam, tex, bg, W, H, main_image):
             for impl in ("cuda4", "cuda2")}
 
     # -- the drive: counts 0 just before, read just after -------------------
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = refit_k.launches = records_k.launches = 0
     batch = {"auto": rt.render_frames(scene, bvh, stack, tex, bg, shadows=True)}
     after_batch4 = (K1.launches, K2.launches)
     batch["cuda2"] = rt.render_frames(scene, bvh, stack, tex, bg, impl="cuda2", shadows=True)
     after_batch2 = (K1.launches, K2.launches)
     anim_hits = {impl: [anim[impl](pos) for pos in positions] for impl in ("cuda4", "cuda2")}
     torch.cuda.synchronize()
-    launches = {"trace_bvh4": K1.launches, "trace_bvh2": K2.launches}
+    launches = {"trace_bvh4": K1.launches, "trace_bvh2": K2.launches,
+                "refit": refit_k.launches, "records": records_k.launches}
     assert after_batch4 == (2, 0), f"a batch of {F} frames launched {after_batch4}, not 2 of K1"
     assert after_batch2 == (2, 2), f"the cuda2 batch launched {after_batch2}"
-    assert launches == {"trace_bvh4": 2 + len(phases), "trace_bvh2": 2 + len(phases)}, launches
+    assert launches == {"trace_bvh4": 2 + len(phases), "trace_bvh2": 2 + len(phases),
+                        "refit": 2 * len(phases), "records": len(phases)}, launches
 
     # -- batched frames against per-frame frames -----------------------------
     single = {impl: [rt.render_frame(scene, bvh, c, tex, bg, impl=impl, shadows=True)
@@ -825,9 +830,19 @@ def run_dynamic_path(rt, timer, scene, bvh, cam, tex, bg, W, H, main_image):
         pos = positions[0]
         s2 = deform_scene(scene, pos)
         b2 = refit_bvh(s2, bvh)
+        # The two kernels of the frame against their plain versions, word
+        # for word (signed zeros included).
+        plain_boxes = lbvh.refit(bvh.range_first, bvh.range_last, bvh.sorted_tri,
+                                 s2.aabb_min, s2.aabb_max, bvh.count)
+        for got, want in zip((b2.node_aabb_min, b2.node_aabb_max), plain_boxes):
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+                "the refit kernel differs from lbvh.refit"
         if impl == "cuda4":
             mask, new_id, cap4 = trace_bvh4._node_mask_cached(bvh)
             plan = trace_bvh4._pack_plan4(bvh, mask, new_id, max(cap4, 1))
+            assert torch.equal(trace_bvh4._apply_plan4(s2, b2, *plan).view(torch.int32),
+                               refit_bvh4.write_records_plain(s2, b2, *plan).view(torch.int32)), \
+                "the record kernel differs from its plain version"
 
             def update():
                 return trace_bvh4._apply_plan4(s2, b2, *plan)
@@ -837,6 +852,7 @@ def run_dynamic_path(rt, timer, scene, bvh, cam, tex, bg, W, H, main_image):
         tables = update()
         animated[impl] = {
             "frames": len(phases), "bit_identical_to_unfused": equal,
+            "refit_and_records_bit_identical_to_plain": True,
             "pixels_whose_triangle_moved": moved, "kernel_launches_per_frame": 1,
             "hit_fraction": float(anim_hits[impl][0].hit.float().mean()),
             "stage_ms": {
@@ -2035,7 +2051,8 @@ def main() -> int:
     from unitysimpleraytracing_tpu_torch.core.camera import generate_rays
     from unitysimpleraytracing_tpu_torch.io.png import read_png, write_png
     from unitysimpleraytracing_tpu_torch.ops import (
-        dispatch, lbvh, scan, sort, sort_radix_cuda, trace, trace_bvh2, trace_bvh4, unique,
+        dispatch, lbvh, refit_bvh4, scan, sort, sort_radix_cuda, trace, trace_bvh2, trace_bvh4,
+        unique,
     )
     from unitysimpleraytracing_tpu_torch.pipeline import render
     from unitysimpleraytracing_tpu_torch.utils import kernel_build, parity
@@ -2057,7 +2074,8 @@ def main() -> int:
     # ---- 2. build_kernels ------------------------------------------------
     t0 = time.perf_counter()
     kernel_names = (trace_bvh4.KERNEL_NAME, trace_bvh2.KERNEL_NAME,
-                    sort_radix_cuda.KERNEL_NAME, scan.KERNEL_NAME, kernel_probe.KERNEL_NAME)
+                    sort_radix_cuda.KERNEL_NAME, scan.KERNEL_NAME, kernel_probe.KERNEL_NAME,
+                    refit_bvh4.KERNEL_NAME)
     started = {name: kernel_build.start_build(name) for name in kernel_names}
     for name, st in started.items():
         kernel_build.finish_build(name, st)
@@ -2066,6 +2084,8 @@ def main() -> int:
     sort_radix_cuda._load_kernel()
     scan._load_kernel()
     kernel_probe._load_kernel()
+    refit_bvh4._load_kernel("refit_launch")
+    refit_bvh4._load_kernel("records_launch")
     emit("build_kernels", seconds=time.perf_counter() - t0,
          libraries={n: os.path.relpath(kernel_build.library_path(n), HERE)
                     for n in kernel_names},

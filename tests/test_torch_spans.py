@@ -297,7 +297,8 @@ def test_every_device_to_host_read_sits_in_a_readback_span(card, cell, tmp_path)
     CUDA's sync debug mode, which warns at every operation that waits for
     the device.  Every device-to-host read lies in a ``readback.*`` span of
     its own, and the program's other waits are its blocking host-to-device
-    copies (pageable uploads of small tensors)."""
+    copies (pageable uploads of small tensors).  A refit frame waits for
+    nothing, and its refit and table update are at most three launches."""
     from rtbench import steps, tracing
     from rtbench.manifest import Manifest
 
@@ -349,3 +350,9 @@ def test_every_device_to_host_read_sits_in_a_readback_span(card, cell, tmp_path)
     assert all(n and n.startswith(program_spans.READBACK) for n in d2h), (Counter(d2h), found)
     assert len(d2h) == len(reads), found
     assert sum(program.values()) == len(reads) + h2d, found
+    if cell == "terrain65k.deform_refit":
+        # The refit and the record write: one kernel each, nothing read back
+        # and nothing uploaded.
+        update = program_spans.total(t, ("anim.refit", "anim.tables"), "launches")
+        assert update is not None and update <= 3, (update, found)
+        assert len(reads) == 0 and h2d == 0 and not program, found

@@ -224,7 +224,9 @@ def test_kernel_ab_times_k2_and_reports_its_registers():
     from unitysimpleraytracing_tpu_torch.benchmarks import kernel_ab
 
     assert "k2" in kernel_ab.CASES and "k2_vs_k1" in kernel_ab.CASES
-    assert set(kernel_ab.PTXAS) == {"trace_bvh4", "trace_bvh2", "scan", "radix_sort"}
+    assert set(kernel_ab.PTXAS) == {"trace_bvh4", "trace_bvh2", "scan", "radix_sort",
+                                    "refit_bvh4"}
+    assert "refit" in kernel_ab.CASES
     with pytest.raises(ValueError, match="unknown cases"):
         kernel_ab.main(["--cases", "k2,k9"])
 

@@ -1,10 +1,11 @@
 """K1 (BVH4 traversal), K1c (its compressed-record variant), K2 (binary-record
-traversal), K5 (exclusive scan), the "cuda" sort (K3, K4) and the frame with
-shadows, timed through the package's public entry points, to compare two
-checkouts on one card in turns.
+traversal), K5 (exclusive scan), the "cuda" sort (K3, K4), the animated
+frame's refit and record write, and the frame with shadows, timed through
+the package's public entry points, to compare two checkouts on one card in
+turns.
 
     python unitysimpleraytracing_tpu_torch/benchmarks/kernel_ab.py \\
-        [--root DIR] [--iters 7] [--cases k1,k2,k2_vs_k1,frame,k5,sort] [--out FILE]
+        [--root DIR] [--iters 7] [--cases k1,k2,k2_vs_k1,frame,k5,refit,sort] [--out FILE]
 
 ``--root DIR`` imports ``unitysimpleraytracing_tpu_torch`` from DIR (for
 example a parent commit unpacked with ``git archive`` into a git-ignored
@@ -32,6 +33,13 @@ warm one, the frame at the host's pace, as it runs.  Cases:
 - ``frame``: the frame with shadows on the default tree;
 - ``k5``: K5 at 262,144 and 65,280 int32 (the sort's histograms at 1 M keys
   and at 260,642 triangles), in turns with ``torch.cumsum``;
+- ``refit``: the animated frame's refit and record-table update
+  (``refit_bvh`` then ``trace_bvh4._apply_plan4``, as the checkout runs
+  them) on the default trees of terrain65k (65,536 rows) and config 3
+  (261,120 rows), deformed as the benchmark's cell deforms them, in turns
+  with the plain pair (``lbvh.refit``, ``refit_bvh4.write_records_plain``)
+  where the checkout has it; each step alone too, with its byte bound and a
+  digest of the boxes and the table;
 - ``sort``: one digit pass of the ``"cuda"`` engine (``cuda_pass_debug``:
   keys, values and the per-block observables) at 1,048,576 keys, and the
   whole sort (``sort_key_val``) at 1,048,576 and 4,194,304 random 32-bit
@@ -64,11 +72,14 @@ PKG_NAME = "unitysimpleraytracing_tpu_torch"
 THIS_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H = 1920, 1056
 SCAN_SIZES = (262144, 65280)
-CASES = ("k1", "k2", "k2_vs_k1", "frame", "k5", "sort")
+CASES = ("k1", "k2", "k2_vs_k1", "frame", "k5", "refit", "sort")
 SORT_SIZES = (1 << 20, 1 << 22)
 # Kernels whose compiler report (registers, spill, stack frame) the line
 # carries; one not built in the run reports nothing.
-PTXAS = ("trace_bvh4", "trace_bvh2", "scan", "radix_sort")
+PTXAS = ("trace_bvh4", "trace_bvh2", "scan", "radix_sort", "refit_bvh4")
+# The refit case's scenes (terrain_mesh arguments), each on its default tree.
+REFIT_SCENES = (("terrain65k", dict(res=182, size=80.0, amplitude=9.0, seed=0)),
+                ("config3", dict(res=362, size=160.0, amplitude=20.0, seed=1)))
 
 
 def digest(*tensors) -> str:
@@ -271,6 +282,84 @@ def _sort_cases(rt, timer, iters: int, cold: dict) -> dict:
     return out
 
 
+def _refit_bytes(bvh, rows: int) -> dict:
+    """Least bytes of each step, every input read once and every output
+    written once: the refit reads each leaf's box (24 B) and sorted index
+    (4 B), each node's links (two children, two leaf flags, two parents:
+    18 B) and arrival counter (4 B, written back) and writes its box (24 B);
+    the record write reads each record's plan (32 B of sources, 16 B of
+    metas), each node box (24 B) and each triangle's box and corners (60 B)
+    once, and writes 256 B a record."""
+    cap = bvh.capacity
+    return {"refit": cap * (24 + 4 + 18 + 8 + 24),
+            "records": rows * (32 + 16 + 256) + cap * (24 + 60)}
+
+
+def _refit_cases(rt, timer, profiling, iters: int, cold: dict) -> dict:
+    """The ``refit`` case: the checkout's refit and record write against the
+    plain pair, in turns, on two scenes."""
+    from unitysimpleraytracing_tpu_torch.ops import lbvh, trace_bvh4
+
+    try:
+        from unitysimpleraytracing_tpu_torch.ops import refit_bvh4
+    except ImportError:  # a checkout before the two kernels: its path is the plain pair
+        refit_bvh4 = None
+    out = {}
+    for label, args in REFIT_SCENES:
+        scene = rt.build_scene(rt.terrain_mesh(**args))
+        bvh = rt.build_bvh(scene)
+        mask, new_id, rows = trace_bvh4._node_mask_cached(bvh)
+        plan = trace_bvh4._pack_plan4(bvh, mask, new_id, max(rows, 1))
+        t = scene.triangles
+        pos = torch.stack([t.a, t.b, t.c], dim=1).clone()
+        pos[..., 1] += 0.5 * torch.sin(0.37 * pos[..., 0] + 0.7)
+        s2 = rt.deform_scene(scene, pos)
+        b2 = rt.refit_bvh(s2, bvh)  # links and counters made before the clock
+        table = trace_bvh4._apply_plan4(s2, b2, *plan)
+
+        def path():
+            return trace_bvh4._apply_plan4(s2, rt.refit_bvh(s2, bvh), *plan)
+
+        def refit_plain():
+            return lbvh.refit(bvh.range_first, bvh.range_last, bvh.sorted_tri, s2.aabb_min,
+                              s2.aabb_max, bvh.count)
+
+        fns = {"path": path}
+        steps = {"refit_ms": lambda: rt.refit_bvh(s2, bvh),
+                 "records_ms": lambda: trace_bvh4._apply_plan4(s2, b2, *plan)}
+        if refit_bvh4 is not None:
+            plain = refit_plain()
+            b_plain = bvh.replace(node_aabb_min=plain[0], node_aabb_max=plain[1])
+            same = (torch.equal(b2.node_aabb_min.view(torch.int32), plain[0].view(torch.int32))
+                    and torch.equal(b2.node_aabb_max.view(torch.int32),
+                                    plain[1].view(torch.int32))
+                    and torch.equal(table.view(torch.int32), refit_bvh4.write_records_plain(
+                        s2, b_plain, *plan).view(torch.int32)))
+            if not same:
+                raise AssertionError(f"the refit kernels differ from the plain pair at {label}")
+
+            def plain_pair():
+                nmin, nmax = refit_plain()
+                return refit_bvh4.write_records_plain(
+                    s2, bvh.replace(node_aabb_min=nmin, node_aabb_max=nmax), *plan)
+
+            fns["plain"] = plain_pair
+            steps["plain_refit_ms"] = refit_plain
+            steps["plain_records_ms"] = lambda: refit_bvh4.write_records_plain(
+                s2, b2, *plan)
+        bound = _refit_bytes(bvh, int(plan[0].shape[0]))
+        out[label] = {
+            "capacity": int(bvh.capacity), "triangles": int(scene.count),
+            "records": int(plan[0].shape[0]),
+            "digest": digest(b2.node_aabb_min, b2.node_aabb_max, table),
+            "ms_cold_l2_in_turns": _in_turns(timer, fns, iters, **cold),
+            **{name: timer.median_ms(fn, iters=iters, **cold) for name, fn in steps.items()},
+            "bytes": bound,
+            "bound_ms": {k: v / profiling.PEAK_BYTES_PER_S * 1e3 for k, v in bound.items()}}
+        del scene, bvh, s2, b2, table, plan
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(THIS_PKG),
@@ -358,12 +447,16 @@ def main(argv=None) -> dict:
             "ms_cold_l2_in_turns": turns,
             "bound_ms": 2 * 4 * size / profiling.PEAK_BYTES_PER_S * 1e3}
 
+    if "refit" in cases:
+        line["refit"] = _refit_cases(rt, timer, profiling, args.iters, cold)
+
     if "sort" in cases:
         line["sort"] = _sort_cases(rt, timer, args.iters, cold)
 
     line["ptxas"] = {name: [ln.strip() for ln in kernel_build.build_log(name).splitlines()
                             if "registers" in ln or "spill" in ln or "stack frame" in ln]
-                     for name in PTXAS}
+                     for name in PTXAS
+                     if os.path.exists(os.path.join(kernel_build.CSRC_DIR, name + ".cu"))}
     text = json.dumps(line)
     print(text, flush=True)
     if args.out:

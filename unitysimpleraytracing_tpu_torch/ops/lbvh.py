@@ -32,8 +32,12 @@ the elementwise min/max of the leaf AABBs over that range — identical, bit for
 bit, to the recursive merge of children (min/max are associative, commutative
 and exact in f32).  A sparse table of power-of-2 windowed min/max answers
 every node with two overlapping window lookups; no atomics, deterministic.
+On the card the animated frame refits bottom-up instead, in one kernel
+(ops/refit_bvh4.py), held to this refit bit for bit; the builds keep this one.
 """
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -172,7 +176,8 @@ def build_topology(codes: torch.Tensor, count: int, with_parents: bool = True):
     left_is_leaf = valid & (split == first)
     right_is_leaf = valid & (split + 1 == last)
 
-    # Parent links are diagnostic-only: nothing in the render path reads them.
+    # The Bvh's own parent links are diagnostic-only: the render path reads
+    # the links `topology_links` makes once per topology.
     if with_parents:
         internal_parent, leaf_parent = parent_links(
             left, right, left_is_leaf, right_is_leaf, valid
@@ -199,7 +204,7 @@ def _scatter_ids(target: torch.Tensor, index: torch.Tensor, mask: torch.Tensor):
 
 def parent_links(left, right, left_is_leaf, right_is_leaf, valid):
     """Parent arrays from child links via 4 masked scatters.  Works for ANY
-    contiguous-range binary tree; diagnostic-only data."""
+    contiguous-range binary tree."""
     cap = left.shape[0]
     internal_parent = torch.full((cap,), -1, dtype=torch.int32, device=left.device)
     leaf_parent = torch.full((cap,), -1, dtype=torch.int32, device=left.device)
@@ -208,6 +213,29 @@ def parent_links(left, right, left_is_leaf, right_is_leaf, valid):
     _scatter_ids(leaf_parent, left, valid & left_is_leaf)
     _scatter_ids(leaf_parent, right, valid & right_is_leaf)
     return internal_parent, leaf_parent
+
+
+# id(bvh.left) -> (weakref(left), internal_parent, leaf_parent).  Keyed by
+# the topology tensor's identity: a refitted tree keeps ``left``, so it finds
+# the links of the tree it was refitted from.
+_LINKS_CACHE: dict = {}
+
+
+def topology_links(bvh: Bvh):
+    """(internal_parent, leaf_parent) of the tree's topology, made once per
+    topology by `parent_links` (its four read-backs) and cached.  The BVH4
+    record mask and the refit kernel (ops/refit_bvh4.py) read them; a
+    non-diagnostic build leaves the Bvh's own fields -1-filled."""
+    key = id(bvh.left)
+    ent = _LINKS_CACHE.get(key)
+    if ent is not None and ent[0]() is bvh.left:
+        return ent[1], ent[2]
+    cap = bvh.left.shape[0]
+    valid = torch.arange(cap, dtype=torch.int32, device=bvh.left.device) < bvh.count - 1
+    links = parent_links(bvh.left, bvh.right, bvh.left_is_leaf, bvh.right_is_leaf, valid)
+    ref = weakref.ref(bvh.left, lambda _r, _k=key: _LINKS_CACHE.pop(_k, None))
+    _LINKS_CACHE[key] = (ref, *links)
+    return links
 
 
 def _chains_left(jump: torch.Tensor) -> bool:

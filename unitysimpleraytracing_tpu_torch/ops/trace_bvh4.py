@@ -69,7 +69,7 @@ import torch
 
 from unitysimpleraytracing_tpu_torch import constants as C
 from unitysimpleraytracing_tpu_torch.core.types import Bvh, HitRecord, Scene
-from unitysimpleraytracing_tpu_torch.ops import lbvh
+from unitysimpleraytracing_tpu_torch.ops import lbvh, refit_bvh4
 from unitysimpleraytracing_tpu_torch.utils import kernel_build
 from unitysimpleraytracing_tpu_torch.utils.profiling import span
 
@@ -96,10 +96,9 @@ def _node_mask_compute(bvh: Bvh):
     dev = bvh.left.device
     ids = torch.arange(cap, dtype=torch.int32, device=dev)
     valid = ids < bvh.count - 1
-    # Parent links may be absent (-1-filled non-diagnostic build): recompute.
-    iparent, _ = lbvh.parent_links(
-        bvh.left, bvh.right, bvh.left_is_leaf, bvh.right_is_leaf, valid
-    )
+    # The topology's links, shared with the refit kernel (a non-diagnostic
+    # build leaves the Bvh's own -1-filled).
+    iparent, _ = lbvh.topology_links(bvh)
     depth = lbvh.compute_depths(iparent, bvh.count)
     mask = valid & (depth % 2 == 0)
     new_id = torch.cumsum(mask, dim=0, dtype=torch.int32) - 1
@@ -133,12 +132,13 @@ def bvh4_node_mask(bvh: Bvh):
 
 def _pack_plan4(bvh: Bvh, mask, new_id, cap4: int):
     """Topology-only half of the table pack: per-record-row entry SOURCE
-    indices into the unified geometry source array (_apply_plan4's ``S``)
+    indices into the unified geometry source rows (node boxes, triangles,
+    the EMPTY entry: `refit_bvh4.write_records`)
     plus the constant meta columns.
 
     A deforming mesh changes boxes and vertices but not the tree, so this
     plan is computed once per topology and cached; the per-frame repack
-    replays only the geometry gathers."""
+    replays only the record write."""
     cap = bvh.capacity
     dev = bvh.left.device
     left, right = bvh.left.to(torch.int64), bvh.right.to(torch.int64)
@@ -203,51 +203,11 @@ def _pack_plan4(bvh: Bvh, mask, new_id, cap4: int):
 
 
 def _apply_plan4(scene: Scene, bvh: Bvh, src_idx, metas):
-    """Geometry-only half of the table pack: build the unified source array
-    and gather each entry's 15 slots (6 box + 9 pre-differenced verts) by the
-    plan's source rows."""
-    cap = bvh.capacity
-    dev = bvh.left.device
-    t = scene.triangles
-    BIG = 3.0e38
-    f32 = dict(dtype=torch.float32, device=dev)
-    # Rows [0, cap): internal BVH2 nodes (boxes; verts inert zeros).
-    # Rows [cap, 2cap): triangles (leaf box + (a, e1=b−a, e2=c−a) — the
-    # pre-differenced Möller–Trumbore form).
-    # Row 2cap: the inert EMPTY entry (inverted box, zero verts).
-    S = torch.cat(
-        [
-            torch.cat(
-                [bvh.node_aabb_min, bvh.node_aabb_max, torch.zeros((cap, 9), **f32)],
-                dim=1,
-            ),
-            torch.cat(
-                [scene.aabb_min, scene.aabb_max, t.a, t.b - t.a, t.c - t.a], dim=1
-            ),
-            torch.cat(
-                [torch.full((1, 3), BIG, **f32), torch.full((1, 3), -BIG, **f32),
-                 torch.zeros((1, 9), **f32)],
-                dim=1,
-            ),
-        ],
-        dim=0,
-    )  # (2·cap + 1, 15)
-
-    # Cull-margin widening for scene extents beyond ~8e3: boxes grow by a
-    # few ULPs of the extent so rounding in the slab test cannot cull a
-    # child whose triangle test would have hit.
-    root = torch.maximum(
-        bvh.node_aabb_min[0].abs().max(), bvh.node_aabb_max[0].abs().max()
-    )
-    widen = torch.clamp(root - 8192.0, min=0.0) * 4e-6
-
-    g = [S[src_idx[:, e]] for e in range(4)]  # 4 × (cap4, 15)
-    return torch.cat(
-        [torch.cat([ge[:, 0:3] - widen, ge[:, 3:6] + widen], dim=1) for ge in g]
-        + [metas]
-        + [ge[:, 6:15] for ge in g],
-        dim=1,
-    )  # (cap4, 64): boxes 0-23, metas 24-27, verts 28-63
+    """Geometry-only half of the table pack: the (cap4, 64) records of the
+    plan's source rows over the current boxes and triangles
+    (`refit_bvh4.write_records`: the record kernel on the card, its plain
+    version on the CPU)."""
+    return refit_bvh4.write_records(scene, bvh, src_idx, metas)
 
 
 @torch.no_grad()
@@ -258,7 +218,7 @@ def pack_tables4(
 
     Two-stage: a topology-only PLAN (_pack_plan4 — entry sources + metas,
     cached per topology) applied to the current geometry (_apply_plan4 —
-    4 grouped gathers).  A refit-per-frame animation loop therefore repays
+    one kernel on the card).  A refit-per-frame animation loop therefore repays
     only the apply stage.
 
     ``cap4`` is the record count (defaults to the worst-case (2·cap+1)/3

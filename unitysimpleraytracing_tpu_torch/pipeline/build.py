@@ -14,7 +14,7 @@ import torch
 
 from unitysimpleraytracing_tpu_torch import constants as C
 from unitysimpleraytracing_tpu_torch.core.types import Bvh, Scene
-from unitysimpleraytracing_tpu_torch.ops import lbvh, sah, sort, unique
+from unitysimpleraytracing_tpu_torch.ops import lbvh, refit_bvh4, sah, sort, unique
 from unitysimpleraytracing_tpu_torch.utils.profiling import span
 
 BUILDERS = ("karras", "sah", "sah_free")
@@ -154,16 +154,13 @@ def refit_bvh(scene: Scene, bvh: Bvh) -> Bvh:
     equivalent: it rebuilds everything each Awake).
 
     Exact: output equals a fresh refit of the same topology over the new leaf
-    boxes.  ``replace`` keeps the topology tensors' object identity, which the
-    BVH4 table packer's per-topology cache keys on — a refit-per-frame render
-    loop skips the depth chase when repacking (ops/trace_bvh4).
+    boxes (``lbvh.refit``), bit for bit.  On the card this is one launch of
+    the bottom-up refit kernel (`refit_bvh4.refit_nodes`), which climbs the
+    parent links `lbvh.topology_links` makes once per topology; on the CPU,
+    ``lbvh.refit`` itself.  ``replace`` keeps the topology tensors' object
+    identity, which the per-topology caches key on — a refit-per-frame render
+    loop skips the parent links and the depth chase when repacking
+    (ops/trace_bvh4).
     """
-    node_min, node_max = lbvh.refit(
-        bvh.range_first,
-        bvh.range_last,
-        bvh.sorted_tri,
-        scene.aabb_min,
-        scene.aabb_max,
-        bvh.count,
-    )
+    node_min, node_max = refit_bvh4.refit_nodes(bvh, scene.aabb_min, scene.aabb_max)
     return bvh.replace(node_aabb_min=node_min, node_aabb_max=node_max)

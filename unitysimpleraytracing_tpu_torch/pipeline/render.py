@@ -15,7 +15,7 @@ import torch
 from unitysimpleraytracing_tpu_torch.core.camera import Camera, generate_rays
 from unitysimpleraytracing_tpu_torch.core.texture import Texture
 from unitysimpleraytracing_tpu_torch.core.types import Bvh, HitRecord, Scene
-from unitysimpleraytracing_tpu_torch.ops import trace, trace_bvh2, trace_bvh4
+from unitysimpleraytracing_tpu_torch.ops import lbvh, trace, trace_bvh2, trace_bvh4
 from unitysimpleraytracing_tpu_torch.ops.dispatch import (
     _row_major,
     _tile_major,
@@ -245,22 +245,27 @@ def make_animated_renderer(scene: Scene, bvh: Bvh, cam: Camera, impl: str = "aut
 
     For the BVH4 engines the topology-dependent half of the table pack (entry
     sources + metas, `trace_bvh4._pack_plan4`) is computed ONCE here and
-    closed over; each frame repays only the geometry gathers
-    (`_apply_plan4`).  The binary-record engines re-pack their whole table
-    from the refitted tree each frame (`trace_bvh2.pack_tables`), and
-    ``packet`` / ``perray`` read the scene and tree directly.  The reference
-    rebuilds everything each Awake and has no animated path at all
+    closed over, with the parent links the refit climbs; each frame repays
+    only the refit and the record write (`_apply_plan4`): on the card, one
+    launch each (ops/refit_bvh4).  The binary-record engines re-pack their
+    whole table from the refitted tree each frame (`trace_bvh2.pack_tables`),
+    and ``packet`` / ``perray`` read the scene and tree directly.  The
+    reference rebuilds everything each Awake and has no animated path at all
     (RaytracingMeshDrawer.cs:30-84).
 
     ``positions`` is the (T, 3, 3) deformed corner array (`deform_scene`'s
     input).  Bit-identical to the unfused deform / refit / `render_hits`
-    sequence: both run the same eager code.  The JAX package rejects a
+    sequence, and on the card to the plain one (``lbvh.refit``,
+    `refit_bvh4.write_records_plain`).  The JAX package rejects a
     traced tree here; PyTorch has no traced case, so there is nothing to
     reject."""
     impl = _resolve(bvh, cam, impl)
     plan = None
-    if impl in ("cuda4", "plain4"):
-        with span("tables.pack"):
+    with span("tables.pack"):
+        # The parent links the refit kernel climbs, made here so that no
+        # frame reads back (cached per topology; the BVH4 mask shares them).
+        lbvh.topology_links(bvh)
+        if impl in ("cuda4", "plain4"):
             mask, new_id, cap4 = trace_bvh4._node_mask_cached(bvh)
             cap4 = max(cap4, 1)
             # Same meta-packing guards as pack_tables4 (idx + leaf<<21 + ax<<22).
