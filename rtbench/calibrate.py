@@ -8,7 +8,9 @@ For each seed a short window of the program and its check (the lower
 reading: sound runs); for each control seed the same window judged with the
 reference in bfloat16 in the program's place (the control); for each fault
 a window with that fault planted (`rtbench.faults`).  One JSON line each.
-The benchmark's own runs never run this.
+A cell on n > 1 cards runs as n ranks, one a card, that go through the same
+jobs together (`rtbench.ranks`); rank 0 prints.  The benchmark's own runs
+never run this.
 """
 from __future__ import annotations
 
@@ -21,11 +23,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
-from rtbench import faults, run  # noqa: E402
+from rtbench import faults, ranks, run  # noqa: E402
 from rtbench.manifest import Manifest  # noqa: E402
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", default="")
@@ -34,23 +37,31 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, default=2.0)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("calibrate: no CUDA device", file=sys.stderr)
+    manifest = Manifest()
+    world = manifest.cell(args.workload)["chips"]
+    if not torch.cuda.is_available() or torch.cuda.device_count() < world:
+        print(f"calibrate: {args.workload} needs {world} CUDA device(s)", file=sys.stderr)
         return 2
+    if world > 1 and not ranks.is_rank():
+        return ranks.launch([sys.executable, os.path.abspath(sys.argv[0]), *argv], world,
+                            run.T0)
+    group = ranks.join("cuda") if world > 1 else None
     import unitysimpleraytracing_tpu_torch as program
 
-    manifest = Manifest()
     ints = lambda s: [int(x) for x in s.split(",") if x]  # noqa: E731
     jobs = ([("program", s, None) for s in ints(args.seeds)]
             + [("control", s, None) for s in ints(args.control_seeds)]
             + [(f"fault:{f}", s, f) for f in args.faults.split(",") if f
                for s in ints(args.control_seeds)])
-    out = open(args.out, "a") if args.out else None
+    out = open(args.out, "a") if args.out and (group is None or group.rank == 0) else None
     try:
         for what, seed, fault in jobs:
             prog = faults.Faulty(program, fault) if fault else program
             r = run.run_cell(manifest, args.workload, seed, args.seconds, False,
-                             program=prog, control=torch.bfloat16 if what == "control" else None)
+                             program=prog, control=torch.bfloat16 if what == "control" else None,
+                             group=group)
+            if r is None:
+                continue
             line = {"workload": args.workload, "what": what, "seed": seed,
                     "correct": r["correct"], "checks": r["checks"], "sampled": r["sampled"],
                     "metrics": {k: v["value"] for k, v in r["metrics"].items()}}
@@ -61,6 +72,8 @@ def main(argv=None) -> int:
     finally:
         if out:
             out.close()
+        if group is not None:
+            group.close()
     return 0
 
 

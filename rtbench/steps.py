@@ -43,19 +43,27 @@ def deform(base: torch.Tensor, amplitude: float, frequency: float, phase: float)
 
 
 def make(config: dict, traffic: dict, seed: int, device, program, spans,
-         root: str = plugins.ROOT):
+         root: str = plugins.ROOT, rank: int = 0, world: int = 1):
     """The traffic's kind, loaded by name, set to run."""
     cls = plugins.load("kinds", traffic["kind"], root).Kind
-    return cls(config, traffic, seed, device, program, spans, root)
+    return cls(config, traffic, seed, device, program, spans, root, rank=rank, world=world)
 
 
 class Base:
     """The configuration, the traffic's parameters, the program, its device
-    and the spans, and what most kinds do with them."""
+    and the spans, and what most kinds do with them.
+
+    On a cell of n > 1 cards each of n rank processes holds a kind: ``rank``
+    (0 to n - 1) and ``world`` (n); 0 and 1 on one card.  Every rank gets the
+    same configuration, traffic, seed and step indices, and ``device``
+    ``"cuda"`` is the rank's own card.  Rank 0's step returns what the judge
+    reads; the other ranks' outputs are dropped.  ``close`` makes no
+    collective call: the other ranks close while rank 0 judges."""
 
     def __init__(self, config: dict, traffic: dict, seed: int, device, program, spans,
-                 root: str = plugins.ROOT):
+                 root: str = plugins.ROOT, rank: int = 0, world: int = 1):
         self.config, self.traffic, self.seed = config, traffic, seed
+        self.rank, self.world = rank, world
         self.device, self.rt, self.spans, self.root = device, program, spans, root
         self.width, self.height = config["width"], config["height"]
         self.unit = traffic["unit"]
